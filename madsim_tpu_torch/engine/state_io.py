@@ -1,0 +1,50 @@
+"""Carrying engine state across from the reference and back.
+
+``from_numpy_leaves`` builds the port's batched ``EngineState`` from the
+reference's, given as numpy arrays in ``jax.tree.leaves`` order with the
+typed key as its ``key_data`` (uint32[S, 2]) — the positional leaf order
+of the reference's checkpoint format v10 (``leaf_{i}`` /
+``leaf_{i}__key``). ``to_numpy_leaves`` goes the other way. Every leaf's
+dtype and trailing shape is checked against the port's own layout for
+the workload, so a mismatched state is refused rather than misread.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from . import tree
+from .core import EngineConfig, EngineState, Workload, init_sweep
+
+
+def to_numpy_leaves(state) -> List[np.ndarray]:
+    """The state's leaves as numpy arrays, in reference order."""
+    return [leaf.detach().cpu().numpy() for leaf in tree.leaves(state)]
+
+
+def from_numpy_leaves(
+    leaves: Sequence[np.ndarray], workload: Workload, cfg: EngineConfig, device=None
+) -> EngineState:
+    """The port's ``EngineState`` holding the given reference leaves."""
+    dev = resolve_device(device)
+    template = init_sweep(workload, cfg, [0], device="cpu")
+    want = tree.leaves(template)
+    if len(leaves) != len(want):
+        raise ValueError(
+            f"expected {len(want)} leaves for this workload, got {len(leaves)}"
+        )
+    out = []
+    for i, (a, w) in enumerate(zip(leaves, want)):
+        a = np.asarray(a)
+        wdt = w.numpy().dtype
+        if a.dtype != wdt or tuple(a.shape[1:]) != tuple(w.shape[1:]):
+            raise ValueError(
+                f"leaf {i}: expected {wdt}[S, {', '.join(map(str, w.shape[1:]))}], "
+                f"got {a.dtype}{list(a.shape)}"
+            )
+        out.append(torch.from_numpy(np.array(a)).to(dev))  # a writable copy
+    return tree.unflatten(template, out)

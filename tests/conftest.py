@@ -31,3 +31,8 @@ def pytest_configure(config):
         "budgeted run (-m 'not slow'); `make test`/`make stest` and the "
         "matching smoke gates still cover them",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (a hand-written kernel of the PyTorch port, "
+        "which has no CPU or interpret mode); skips where none is present",
+    )
