@@ -29,24 +29,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sim_math.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint32_t murmur_prio(uint32_t slot, uint32_t tie) {
-  uint32_t x = slot * 2654435761u ^ tie;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
-
-__device__ __forceinline__ bool less(long long t, uint32_t p, int s,
-                                     long long bt, uint32_t bp, int bs) {
-  return t < bt || (t == bt && (p < bp || (p == bp && s < bs)));
-}
+using madsim::kInvalidTime;
+using madsim::murmur_prio;
+using madsim::pop_less;
 
 constexpr int kSeedsPerBlock = 8;
-constexpr long long kInvalidTime = 0x7FFFFFFFFFFFFFFFLL;
 
 __global__ void __launch_bounds__(32 * kSeedsPerBlock)
 pop_min_kernel(const long long* __restrict__ time,
@@ -66,7 +57,7 @@ pop_min_kernel(const long long* __restrict__ time,
   for (int s = lane; s < capacity; s += 32) {
     const long long t = row[s];
     const uint32_t p = murmur_prio((uint32_t)s, draw);
-    if (less(t, p, s, bt, bp, bs)) {
+    if (pop_less(t, p, s, bt, bp, bs)) {
       bt = t;
       bp = p;
       bs = s;
@@ -77,7 +68,7 @@ pop_min_kernel(const long long* __restrict__ time,
     const long long ot = __shfl_down_sync(0xFFFFFFFFu, bt, off);
     const uint32_t op = __shfl_down_sync(0xFFFFFFFFu, bp, off);
     const int os = __shfl_down_sync(0xFFFFFFFFu, bs, off);
-    if (less(ot, op, os, bt, bp, bs)) {
+    if (pop_less(ot, op, os, bt, bp, bs)) {
       bt = ot;
       bp = op;
       bs = os;

@@ -11,7 +11,10 @@ gated by the per-seed ``take`` mask, so a lane that is not taken computes
 values that never reach its state.
 
 Every entry point takes ``device=None``, which means CUDA and raises when
-no GPU is present (``madsim_tpu_torch.resolve_device``).
+no GPU is present (``madsim_tpu_torch.resolve_device``). ``params=`` on
+the entry points carries per-lane spec-as-data (``faults.FaultParams``
+of a ``FaultEnvelope`` workload, host numpy or tensors), which the
+workload's ``init`` receives on the sweep's device.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ class Workload(NamedTuple):
     static sizes (the reference's per-seed contract with the seed axis
     written out).
 
-    ``init(key_words int64[S, 2]) -> (wstate, Emits)``;
+    ``init(key_words int64[S, 2][, params]) -> (wstate, Emits)``;
     ``handle(wstate, now_ns [S], kind [S], pay [S, P], rand [S, num_rand])
     -> (wstate, Emits)``; ``cover``/``probe``/``record`` as in the
     reference, batched."""
@@ -98,8 +101,8 @@ class EngineConfig(NamedTuple):
     max_steps: int = 100_000
     jitter_lo_ns: int = 50
     jitter_hi_ns: int = 100
-    # the reference's A/B queue layout with a validity plane; not ported
-    # yet, so only 0 is accepted
+    # 1 = the reference's A/B queue layout with a validity plane
+    # (queue.LegacyEventQueue); both give equal schedules
     legacy_queue: int = 0
     # kept for config compatibility with the reference (validated, unused)
     cond_interval: int = 16
@@ -135,8 +138,6 @@ def _validate(workload: Workload, cfg: EngineConfig) -> None:
         )
     if cfg.cond_interval < 1:
         raise ValueError(f"cond_interval must be >= 1, got {cfg.cond_interval}")
-    if cfg.legacy_queue:
-        raise NotImplementedError("the legacy queue layout is not ported yet")
 
 
 def _seed_tensor(seeds, device) -> torch.Tensor:
@@ -145,15 +146,34 @@ def _seed_tensor(seeds, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(seeds, dtype=np.int64).reshape(-1), device=device)
 
 
-def init_sweep(workload: Workload, cfg: EngineConfig, seeds, device=None) -> EngineState:
-    """Build the batched state for a seed vector (int64[S])."""
+def params_to_device(params, device):
+    """Per-lane params (numpy or tensors) as tensors on ``device``, dtypes
+    kept (a uint32 leaf stays uint32, like the reference's)."""
+    return tree.map(
+        lambda a: a.to(device) if isinstance(a, torch.Tensor)
+        else torch.from_numpy(np.array(a)).to(device),
+        params,
+    )
+
+
+def init_sweep(
+    workload: Workload, cfg: EngineConfig, seeds, device=None, params=None
+) -> EngineState:
+    """Build the batched state for a seed vector (int64[S]). ``params``
+    (optional) is a per-lane tree — leading axis S on every leaf, e.g.
+    ``faults.tile_params`` of one candidate or a candidate x seed grid."""
     dev = resolve_device(device)
     _validate(workload, cfg)
     seeds = _seed_tensor(seeds, dev)
     s = seeds.shape[0]
     words = seed_key(seeds)
-    wstate, emits = workload.init(words)
-    q = equeue.make(s, cfg.queue_capacity, workload.payload_slots, dev)
+    if params is None:
+        wstate, emits = workload.init(words)
+    else:
+        wstate, emits = workload.init(words, params_to_device(params, dev))
+    q = equeue.make(
+        s, cfg.queue_capacity, workload.payload_slots, dev, legacy=bool(cfg.legacy_queue)
+    )
     q, overflow = equeue.push_many(q, emits.times, emits.kinds, emits.pays, emits.enables)
     hs = hist_slots(workload)
 
@@ -284,45 +304,113 @@ def drive(workload: Workload, cfg: EngineConfig, state: EngineState) -> EngineSt
     return state
 
 
-def run_sweep(workload: Workload, cfg: EngineConfig, seeds, device=None) -> EngineState:
+def run_sweep(
+    workload: Workload, cfg: EngineConfig, seeds, device=None, params=None
+) -> EngineState:
     """Run a whole seed batch to completion; returns the final batched
-    state (workload stats live in ``.wstate``)."""
-    return drive(workload, cfg, init_sweep(workload, cfg, seeds, device=device))
+    state (workload stats live in ``.wstate``). ``params`` carries
+    per-lane spec-as-data (see ``init_sweep``)."""
+    return drive(workload, cfg, init_sweep(workload, cfg, seeds, device=device, params=params))
 
 
-def run_in_chunks(run_chunk, seeds, chunk_size: int) -> EngineState:
+def lane_slice(state, n: int, lo: int):
+    """Lanes ``[lo, lo + n)`` of a batched state tree (the grid path
+    carves one candidate's lanes out of a flat sweep with this)."""
+    return tree.map(lambda a: a.narrow(0, int(lo), n), state)
+
+
+def _slice_params(params, lo: int, hi: int):
+    """Per-lane params for one chunk's lane slice."""
+    return tree.map(lambda a: a[lo:hi], params)
+
+
+def run_in_chunks(run_chunk, seeds, chunk_size: int, params=None) -> EngineState:
     """Run ``run_chunk(seed_chunk)`` over sequential ``chunk_size`` slices
-    (the last may be shorter) and concatenate the final states."""
+    (the last may be shorter) and concatenate the final states. With
+    per-lane ``params``, ``run_chunk(seed_chunk, param_chunk)`` receives
+    the matching slice."""
     seeds = _seed_tensor(seeds, "cpu")
     if seeds.shape[0] == 0:
         raise ValueError("seed batch is empty")
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
-    finals = [run_chunk(seeds[lo : lo + chunk_size])
-              for lo in range(0, int(seeds.shape[0]), chunk_size)]
+    finals = []
+    for lo in range(0, int(seeds.shape[0]), chunk_size):
+        chunk = seeds[lo : lo + chunk_size]
+        if params is None:
+            finals.append(run_chunk(chunk))
+        else:
+            finals.append(run_chunk(chunk, _slice_params(params, lo, lo + chunk_size)))
     return tree.map(lambda *ls: torch.cat(ls, dim=0), *finals)
 
 
-def run_sweep_chunked(
-    workload: Workload, cfg: EngineConfig, seeds, chunk_size: int, device=None
-) -> EngineState:
-    """Run a large sweep as sequential ``chunk_size`` batches and
-    concatenate the final states — bit-identical per seed to one big
-    ``run_sweep`` (seeds are independent)."""
-    dev = resolve_device(device)
-    return run_in_chunks(
-        lambda chunk: run_sweep(workload, cfg, chunk, device=dev), seeds, chunk_size
-    )
+def _one_lane(params):
+    """One candidate's unbatched params with a lane axis of 1."""
+    return None if params is None else tree.map(lambda a: a[None], params)
 
 
-def state_bytes_per_seed(workload: Workload, cfg: EngineConfig) -> int:
+def state_bytes_per_seed(workload: Workload, cfg: EngineConfig, params=None) -> int:
     """Loop-carry bytes one seed lane holds (the key counts its two
-    uint32 words), from one lane's initial state built on the CPU."""
-    one = init_sweep(workload, cfg, [0], device="cpu")
+    uint32 words), from one lane's initial state built on the CPU.
+    ``params`` is one lane's (unbatched) spec-as-data tree for an
+    envelope workload, whose carry holds the lane's ``FaultRt``."""
+    one = init_sweep(workload, cfg, [0], device="cpu", params=_one_lane(params))
     return sum(leaf.numel() * leaf.element_size() for leaf in tree.leaves(one))
 
 
-def run_traced(workload: Workload, cfg: EngineConfig, seed: int, device=None):
+# The reference's loop-carry budget for an auto-picked chunk: chosen for
+# the TPU (its batch curve's occupancy knee, docs/pallas_finding.md), not
+# measured on the H100. Pass ``budget_bytes`` to override it.
+DEFAULT_CHUNK_BUDGET_BYTES = 128 * 1024 * 1024
+
+
+def pick_chunk_size(
+    workload: Workload,
+    cfg: EngineConfig,
+    budget_bytes: int = DEFAULT_CHUNK_BUDGET_BYTES,
+    lo: int = 1024,
+    hi: int = 65536,
+    params=None,
+) -> int:
+    """Largest power-of-two batch in ``[lo, hi]`` whose loop carry fits
+    ``budget_bytes`` (the reference's rule); ``params`` is one lane's
+    unbatched spec-as-data tree."""
+    per_seed = max(1, state_bytes_per_seed(workload, cfg, params=params))
+    size = lo
+    while size * 2 <= hi and size * 2 * per_seed <= budget_bytes:
+        size *= 2
+    return size
+
+
+def run_sweep_chunked(
+    workload: Workload,
+    cfg: EngineConfig,
+    seeds,
+    chunk_size: Optional[int] = None,
+    device=None,
+    params=None,
+) -> EngineState:
+    """Run a large sweep as sequential ``chunk_size`` batches and
+    concatenate the final states — bit-identical per seed to one big
+    ``run_sweep`` (seeds are independent). ``chunk_size=None`` picks one
+    with ``pick_chunk_size``; per-lane ``params`` are sliced per chunk."""
+    dev = resolve_device(device)
+    if chunk_size is None:
+        chunk_size = pick_chunk_size(
+            workload, cfg,
+            params=None if params is None else tree.map(lambda a: a[0], params),
+        )
+    if params is None:
+        return run_in_chunks(
+            lambda chunk: run_sweep(workload, cfg, chunk, device=dev), seeds, chunk_size
+        )
+    return run_in_chunks(
+        lambda chunk, pchunk: run_sweep(workload, cfg, chunk, device=dev, params=pchunk),
+        seeds, chunk_size, params=params,
+    )
+
+
+def run_traced(workload: Workload, cfg: EngineConfig, seed: int, device=None, params=None):
     """Replay ONE seed, recording every dispatched event in order; returns
     ``(final, trace)`` like the reference (``final`` without the seed
     axis; ``trace`` arrays of length ``cfg.max_steps``: ``time_ns``,
@@ -332,9 +420,11 @@ def run_traced(workload: Workload, cfg: EngineConfig, seed: int, device=None):
     The reference scans all ``max_steps`` steps. Once the seed is done
     every further step is a frozen no-op that records ``(-1, -1, 0,
     False)`` and the final state's probe, so the loop stops there and
-    the remaining entries are filled with exactly those values."""
+    the remaining entries are filled with exactly those values.
+
+    ``params`` is ONE candidate's (unbatched) spec-as-data tree."""
     dev = resolve_device(device)
-    state = init_sweep(workload, cfg, [seed], device=dev)
+    state = init_sweep(workload, cfg, [seed], device=dev, params=_one_lane(params))
     total = cfg.max_steps
     p = workload.payload_slots
     times, kinds, pays, fired, probes = [], [], [], [], []

@@ -4,9 +4,9 @@
 ``pop_min_decision(time, tie)`` returns ``(slot int32[S], found bool[S])``
 — the slot ``queue.pop_min`` removes for each seed. On a CUDA tensor it
 launches ``csrc/pop_min.cu`` (built for ``sm_90a`` with ``nvcc`` at first
-use into ``madsim_tpu_torch/_build/``, bound through a plain C interface
-with ``ctypes``) or raises; on a CPU tensor it runs the plain torch
-version ``pop_min_decision_ref``. There is no fallback from one to the
+use by ``cuda_build``, bound through a plain C interface with ``ctypes``)
+or raises; on a CPU tensor it runs the plain torch version
+``pop_min_decision_ref``. There is no fallback from one to the
 other: a CUDA tensor never takes the plain path.
 
 ``pop_min_decision.launches`` counts kernel launches (the plain path does
@@ -16,27 +16,15 @@ not count), so a run can show that the main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
+from . import cuda_build
 from .rng import M32, mul32
 
 INVALID_TIME = (1 << 63) - 1
 HASH_MULT = 2654435761  # Knuth multiplicative hash constant
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "pop_min.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 
 def murmur_prio(tie: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -64,56 +52,13 @@ def pop_min_decision_ref(
     return slot, t != INVALID_TIME
 
 
-class _Build:
-    """The compiled kernel library, built once per process."""
-
-    lib: Optional[ctypes.CDLL] = None
-    log: str = ""
-
-
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-        shutil.which("nvcc") or "",
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
 def build() -> ctypes.CDLL:
     """Compile ``csrc/pop_min.cu`` (unless an identical build exists) and
-    load it. Raises on any compiler error; ``_Build.log`` keeps the
-    compiler's output (``-Xptxas -v`` register and spill report)."""
-    if _Build.lib is not None:
-        return _Build.lib
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libpop_min_{tag}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                capture_output=True, text=True, timeout=600,
-            )
-            _Build.log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{_Build.log}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(so)
-    fn = lib.madsim_pop_min
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _Build.lib = lib
-    return lib
+    load it; ``cuda_build.LOGS["pop_min"]`` keeps the compiler's output."""
+    return cuda_build.build(
+        "pop_min", "madsim_pop_min",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    )
 
 
 def _launch(time: torch.Tensor, tie: torch.Tensor):

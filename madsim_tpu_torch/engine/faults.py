@@ -11,22 +11,29 @@
 - ``FaultState`` + ``on_event``: the shared in-loop interpreter (liveness
   and pause masks, per-direction partition refcounts, slow-disk and
   clock-skew refcounts, refcounted latency and loss bursts).
-
-Only ``FaultSpec`` campaigns (the reference's ``params=None`` path) are ported; literal
-schedules (``FixedFaults``) and the spec-as-data envelope path
-(``FaultEnvelope``/``FaultParams``) wait for a later slice.
+- ``FixedFaults``: a literal, seedless schedule.
+- Spec as data: a ``FaultEnvelope`` is a campaign's static shape (the
+  padded window capacity per family); ``spec_to_params`` compiles one
+  concrete spec to ``FaultParams`` (host numpy, validated eagerly),
+  ``tile_params``/``stack_params``/``grid_params`` lay them out per lane,
+  and ``schedule_events_padded`` derives the envelope-shaped schedule
+  whose enabled rows equal ``schedule_events`` of the spec bit for bit.
+  A model then carries the candidate's runtime scalars (``FaultRt``) per
+  lane and reads them through ``runtime_spec``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import net as enet
-from .core import Emits
-from .ops import get1, set1
-from .rng import bits, bounded, fold_in, prob_to_q32
+from . import tree
+from .core import Emits, params_to_device
+from .ops import get1, set1, wide
+from .rng import M32, bits, bounded, fold_in, prob_to_q32, threefry2x32
 
 # fault action codes (payload slot 0 of a fault event)
 F_CRASH = 0
@@ -121,32 +128,322 @@ class FaultSpec(NamedTuple):
     skew_den: int = 2
 
 
-def _require_spec(spec) -> FaultSpec:
-    if not isinstance(spec, FaultSpec):
-        raise NotImplementedError(
-            f"only FaultSpec campaigns are ported; {type(spec).__name__} "
-            "(literal schedules, envelopes) waits for a later slice"
+class FixedFaults(NamedTuple):
+    """A literal fault schedule: ``events`` are ``(time_ns, action_name,
+    victim)`` triples, the same for every seed (no draws). The override
+    fields carry what burst "on" transitions and skew windows need."""
+
+    events: Tuple[Tuple[int, str, int], ...] = ()
+    spike_lat_lo_ns: int = 1_000_000_000
+    spike_lat_hi_ns: int = 5_000_000_000
+    burst_loss_q32: int = prob_to_q32(0.5)
+    skew_num: int = 3
+    skew_den: int = 2
+
+
+# -- spec as data: the campaign envelope ------------------------------------
+
+# fixed family order, the draw order of _categories
+FAMILIES = (
+    "crashes", "partitions", "spikes", "losses", "pauses",
+    "aparts", "fsync_stalls", "power_fails", "skews",
+)
+N_FAMILIES = len(FAMILIES)
+_F_APART = FAMILIES.index("aparts")
+_F_FSYNC = FAMILIES.index("fsync_stalls")
+_F_SKEW = FAMILIES.index("skews")
+
+# (window, dur_lo, dur_hi, group) spec fields per family; group None =
+# the network-wide burst families (victim range [0, 1))
+_FAMILY_FIELDS = (
+    ("crash_window_ns", "restart_lo_ns", "restart_hi_ns", "crash_group"),
+    ("part_window_ns", "part_lo_ns", "part_hi_ns", "part_group"),
+    ("spike_window_ns", "spike_dur_lo_ns", "spike_dur_hi_ns", None),
+    ("loss_window_ns", "loss_dur_lo_ns", "loss_dur_hi_ns", None),
+    ("pause_window_ns", "pause_lo_ns", "pause_hi_ns", "pause_group"),
+    ("apart_window_ns", "apart_lo_ns", "apart_hi_ns", "apart_group"),
+    ("fsync_window_ns", "fsync_lo_ns", "fsync_hi_ns", "fsync_group"),
+    ("power_window_ns", "power_lo_ns", "power_hi_ns", "power_group"),
+    ("skew_window_ns", "skew_lo_ns", "skew_hi_ns", "skew_group"),
+)
+# (on, off) action codes per family; an apart window's pair is (in, out)
+# resolved per window from the victim draw's direction bit
+_FAMILY_ACTIONS = (
+    (F_CRASH, F_RESTART),
+    (F_PART, F_HEAL),
+    (F_SPIKE_ON, F_SPIKE_OFF),
+    (F_LOSS_ON, F_LOSS_OFF),
+    (F_PAUSE, F_RESUME),
+    ((F_PART_IN, F_PART_OUT), (F_HEAL_IN, F_HEAL_OUT)),
+    (F_FSYNC_STALL, F_FSYNC_OK),
+    (F_POWER_FAIL, F_RESTART),
+    (F_SKEW_ON, F_SKEW_OFF),
+)
+
+
+class FaultEnvelope(NamedTuple):
+    """The static shape of a fault campaign: ``maxima[f]`` window pairs of
+    family ``f`` (``FAMILIES`` order) and ``fixed`` literal rows. Every
+    concrete spec whose counts fit compiles to ``FaultParams`` and runs
+    through the same shapes."""
+
+    maxima: Tuple[int, ...] = (0,) * N_FAMILIES
+    fixed: int = 0
+
+
+class FaultRt(NamedTuple):
+    """One candidate's runtime override scalars (per lane on the envelope
+    path) — the ``FaultSpec`` fields ``on_event``/``skewed_delay`` read."""
+
+    spike_lat_lo_ns: object  # int64
+    spike_lat_hi_ns: object  # int64
+    burst_loss_q32: object  # uint32
+    skew_num: object  # int64
+    skew_den: object  # int64
+
+
+class FaultParams(NamedTuple):
+    """One concrete fault campaign as data. Per-family arrays are in
+    ``FAMILIES`` order; rows beyond ``counts[f]`` are disabled. ``fx_*``
+    hold a ``FixedFaults`` schedule padded to the envelope's ``fixed``.
+    Host numpy from ``spec_to_params`` (leading lane axis after
+    ``tile_params``/``stack_params``/``grid_params``); the engine moves
+    them to the sweep's device."""
+
+    counts: object  # int32[N_FAMILIES]
+    windows: object  # int64[N_FAMILIES]
+    dur_lo: object  # int64[N_FAMILIES]
+    dur_hi: object  # int64[N_FAMILIES]
+    vic_lo: object  # int32[N_FAMILIES]
+    vic_hi: object  # int32[N_FAMILIES] (exclusive)
+    fx_times: object  # int64[fixed]
+    fx_actions: object  # int32[fixed]
+    fx_victims: object  # int32[fixed]
+    fx_count: object  # int32 ()
+    rt: FaultRt
+
+
+def campaign_envelope(*specs, mutation_cap: int = 0, fixed: int = 0) -> FaultEnvelope:
+    """The envelope covering every given spec: per family the largest
+    count over the specs and ``mutation_cap``; ``fixed`` the longest
+    literal schedule."""
+    maxima = [mutation_cap] * N_FAMILIES
+    for spec in specs:
+        if isinstance(spec, FixedFaults):
+            fixed = max(fixed, len(spec.events))
+            continue
+        for i, f in enumerate(FAMILIES):
+            maxima[i] = max(maxima[i], getattr(spec, f))
+    return FaultEnvelope(maxima=tuple(maxima), fixed=fixed)
+
+
+def _check_fixed_event(event, num_nodes: int) -> None:
+    t, action, vic = event
+    if action not in ACTION_CODES:
+        raise ValueError(f"unknown fault action {action!r}")
+    if not 0 <= vic < num_nodes:
+        raise ValueError(
+            f"victim {vic} outside [0, {num_nodes}) in fixed schedule "
+            f"event {(t, action, vic)!r}"
         )
-    return spec
+
+
+def spec_to_params(spec, envelope: FaultEnvelope, num_nodes: int) -> FaultParams:
+    """Compile one concrete ``FaultSpec`` or ``FixedFaults`` to the
+    envelope's layout, in host numpy, validating eagerly (group
+    resolution, capacity fit)."""
+    counts = np.zeros((N_FAMILIES,), np.int32)
+    windows = np.ones((N_FAMILIES,), np.int64)
+    dur_lo = np.zeros((N_FAMILIES,), np.int64)
+    dur_hi = np.ones((N_FAMILIES,), np.int64)
+    vic_lo = np.zeros((N_FAMILIES,), np.int32)
+    vic_hi = np.ones((N_FAMILIES,), np.int32)
+    fx_times = np.zeros((envelope.fixed,), np.int64)
+    fx_actions = np.zeros((envelope.fixed,), np.int32)
+    fx_victims = np.zeros((envelope.fixed,), np.int32)
+    fx_count = np.int32(0)
+    if isinstance(spec, FixedFaults):
+        e = len(spec.events)
+        if e > envelope.fixed:
+            raise ValueError(
+                f"FixedFaults schedule of {e} events exceeds the envelope's "
+                f"fixed capacity {envelope.fixed}"
+            )
+        for i, event in enumerate(spec.events):
+            _check_fixed_event(event, num_nodes)
+            fx_times[i] = event[0]
+            fx_actions[i] = ACTION_CODES[event[1]]
+            fx_victims[i] = event[2]
+        fx_count = np.int32(e)
+    else:
+        for i, (fam, fields) in enumerate(zip(FAMILIES, _FAMILY_FIELDS)):
+            count = getattr(spec, fam)
+            if count > envelope.maxima[i]:
+                raise ValueError(
+                    f"spec draws {count} {fam} windows but the envelope caps "
+                    f"the family at {envelope.maxima[i]}"
+                )
+            win_f, lo_f, hi_f, group_f = fields
+            counts[i] = count
+            windows[i] = getattr(spec, win_f)
+            dur_lo[i] = getattr(spec, lo_f)
+            dur_hi[i] = getattr(spec, hi_f)
+            if group_f is None:
+                vic_lo[i], vic_hi[i] = 0, 1
+            else:
+                # validated even for count-0 families, like _categories
+                vic_lo[i], vic_hi[i] = _resolve_group(
+                    getattr(spec, group_f), num_nodes, fam
+                )
+    return FaultParams(
+        counts=counts,
+        windows=windows,
+        dur_lo=dur_lo,
+        dur_hi=dur_hi,
+        vic_lo=vic_lo,
+        vic_hi=vic_hi,
+        fx_times=fx_times,
+        fx_actions=fx_actions,
+        fx_victims=fx_victims,
+        fx_count=fx_count,
+        rt=FaultRt(
+            spike_lat_lo_ns=np.int64(spec.spike_lat_lo_ns),
+            spike_lat_hi_ns=np.int64(spec.spike_lat_hi_ns),
+            burst_loss_q32=np.uint32(spec.burst_loss_q32),
+            skew_num=np.int64(spec.skew_num),
+            skew_den=np.int64(spec.skew_den),
+        ),
+    )
+
+
+def tile_params(params: FaultParams, n: int) -> FaultParams:
+    """One candidate's params broadcast to ``n`` lanes."""
+    return tree.map(lambda a: np.broadcast_to(np.asarray(a), (n,) + np.shape(a)), params)
+
+
+def stack_params(params_list) -> FaultParams:
+    """K candidates' params stacked on a leading axis K."""
+    return tree.map(lambda *ls: np.stack(ls), *params_list)
+
+
+def grid_params(params_list, lanes: int) -> FaultParams:
+    """The (candidate x seed) grid: candidate k owns lanes
+    ``[k * lanes, (k + 1) * lanes)`` of one flat ``K * lanes`` batch."""
+    return tree.map(
+        lambda *ls: np.concatenate(
+            [np.broadcast_to(np.asarray(a), (lanes,) + np.shape(a)) for a in ls]
+        ),
+        *params_list,
+    )
 
 
 def runtime_spec(spec, frt):
-    """The spec view the interpreter reads values from: the static spec
-    itself (the envelope path's per-lane ``FaultRt`` is not ported)."""
-    return _require_spec(spec)
+    """The spec view the interpreter reads values from: the static spec,
+    or this lane's ``FaultRt`` on the envelope path."""
+    return frt if isinstance(spec, FaultEnvelope) else spec
 
 
-def make_rt(spec):
-    """The workload-state ``frt`` slot: a leafless ``()`` on the static
-    path (the only one ported)."""
-    _require_spec(spec)
+def make_rt(spec, params: Optional[FaultParams] = None):
+    """The workload-state ``frt`` slot: the per-lane ``FaultRt`` on the
+    envelope path, a leafless ``()`` otherwise."""
+    if isinstance(spec, FaultEnvelope):
+        if params is None:
+            raise ValueError(
+                "workload config carries a FaultEnvelope; the sweep needs "
+                "per-lane FaultParams (pass params= through run_sweep — "
+                "build them with spec_to_params + tile_params)"
+            )
+        return params.rt
     return ()
 
 
+def bits_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Draw ``idx`` of ``bits(key, n)`` for any ``n > idx``: per key
+    (int64 words ``[S, 2]``) the words at explicit 32-bit counters
+    ``idx [S, ...]`` (int64), as int64 words."""
+    shape = (key.shape[0],) + (1,) * (idx.ndim - 1)
+    k0 = key[:, 0].reshape(shape)
+    k1 = key[:, 1].reshape(shape)
+    i = idx.to(torch.int64) & M32
+    o0, o1 = threefry2x32(k0, k1, torch.zeros_like(i), i)
+    return o0 ^ o1
+
+
+def schedule_events_padded(envelope: FaultEnvelope, params: FaultParams, num_nodes: int,
+                           key: torch.Tensor):
+    """The envelope-shaped schedule of per-lane ``params`` (a leading lane
+    axis on every leaf) and keys ``[S, 2]``: ``(times int64[S, E],
+    actions int32[S, E], victims int32[S, E], enables bool[S, E])`` with
+    ``E = num_events(envelope)``; per lane the enabled rows, in order,
+    equal ``schedule_events`` of the candidate spec."""
+    s, dev = key.shape[0], key.device
+    params = params_to_device(params, dev)
+    pmax = sum(envelope.maxima)
+    cols = ([], [], [], [])
+    if pmax:
+        fam = torch.from_numpy(np.repeat(np.arange(N_FAMILIES), envelope.maxima)).to(dev)
+        row = torch.from_numpy(
+            np.concatenate([np.arange(m) for m in envelope.maxima]).astype(np.int32)
+        ).to(dev)
+        counts = params.counts.to(torch.int32)
+        base = torch.cat(
+            [torch.zeros((s, 1), dtype=torch.int32, device=dev),
+             torch.cumsum(counts, dim=1, dtype=torch.int32)], dim=1,
+        )
+        pair = base[:, fam] + row
+        active = row < counts[:, fam]
+        fkey = fold_in(key.to(torch.int64), FAULT_STREAM)
+        # inactive rows hash counter 0; their draws are never used
+        i3 = torch.where(active, 3 * pair, 0).to(torch.int64)
+        r_start = bits_at(fkey, i3)
+        r_dur = bits_at(fkey, i3 + 1)
+        r_vic = bits_at(fkey, i3 + 2)
+
+        t0 = bounded(r_start, 0, params.windows[:, fam])
+        dur = bounded(r_dur, params.dur_lo[:, fam], params.dur_hi[:, fam])
+        vlo = params.vic_lo[:, fam]
+        vhi = params.vic_hi[:, fam]
+        directional = fam == _F_APART
+        d = bounded(r_vic, 0, 2 * (vhi - vlo))
+        vic = torch.where(
+            directional, vlo + (d >> 1), bounded(r_vic, vlo, vhi)
+        ).to(torch.int32)
+        out_dir = directional & ((d & 1) == 1)
+        # per-family codes; an apart window's inbound pair unless its
+        # direction bit says outbound
+        on_code, off_code = (
+            torch.tensor([a[0] if isinstance(a, tuple) else a for a in codes],
+                         dtype=torch.int32, device=dev)[fam]
+            for codes in zip(*_FAMILY_ACTIONS)
+        )
+        on = torch.where(out_dir, F_PART_OUT, on_code).to(torch.int32)
+        off = torch.where(out_dir, F_HEAL_OUT, off_code).to(torch.int32)
+        # (on, off) interleaved per pair: the static path's row order
+        cols[0].append(torch.stack([t0, t0 + dur], dim=2).reshape(s, 2 * pmax))
+        cols[1].append(torch.stack([on, off], dim=2).reshape(s, 2 * pmax))
+        cols[2].append(torch.stack([vic, vic], dim=2).reshape(s, 2 * pmax))
+        cols[3].append(active.repeat_interleave(2, dim=1))
+    if envelope.fixed:
+        idx = torch.arange(envelope.fixed, dtype=torch.int32, device=dev)
+        cols[0].append(params.fx_times.to(torch.int64))
+        cols[1].append(params.fx_actions.to(torch.int32))
+        cols[2].append(params.fx_victims.to(torch.int32))
+        cols[3].append(idx[None, :] < params.fx_count.to(torch.int32)[:, None])
+    empty = (torch.int64, torch.int32, torch.int32, torch.bool)
+    return tuple(
+        torch.cat(c, dim=1) if c else torch.zeros((s, 0), dtype=dt, device=dev)
+        for c, dt in zip(cols, empty)
+    )
+
+
 def num_events(spec) -> int:
-    """Static event count of the compiled campaign (an on/off pair per
-    window of every category)."""
-    spec = _require_spec(spec)
+    """Static event count of the compiled campaign: an on/off pair per
+    window of a ``FaultSpec``, the literal length of ``FixedFaults``, the
+    padded capacity of a ``FaultEnvelope``."""
+    if isinstance(spec, FixedFaults):
+        return len(spec.events)
+    if isinstance(spec, FaultEnvelope):
+        return 2 * sum(spec.maxima) + spec.fixed
     return 2 * (
         spec.crashes + spec.partitions + spec.spikes + spec.losses
         + spec.pauses + spec.aparts + spec.fsync_stalls + spec.power_fails
@@ -202,9 +499,22 @@ def _categories(spec: FaultSpec, num_nodes: int):
 def schedule_events(spec, num_nodes: int, key: torch.Tensor):
     """The schedule derivation for a batch of keys (int64 words
     ``[S, 2]``): ``(times int64[S, E], actions int32[S, E], victims
-    int32[S, E])`` in pair order (not time-sorted)."""
-    spec = _require_spec(spec)
+    int32[S, E])`` in pair order (not time-sorted). A ``FixedFaults``
+    schedule is the same literal events for every seed."""
     s = key.shape[0]
+    if isinstance(spec, FixedFaults):
+        for event in spec.events:
+            _check_fixed_event(event, num_nodes)
+        e = len(spec.events)
+
+        def lit(vals, dtype):
+            return torch.tensor(vals, dtype=dtype, device=key.device).reshape(1, e).expand(s, e)
+
+        return (
+            lit([t for t, _, _ in spec.events], torch.int64),
+            lit([ACTION_CODES[a] for _, a, _ in spec.events], torch.int32),
+            lit([v for _, _, v in spec.events], torch.int32),
+        )
     e = num_events(spec)
     if e == 0:
         z = torch.zeros((s, 0), dtype=torch.int64, device=key.device)
@@ -240,16 +550,38 @@ def schedule_events(spec, num_nodes: int, key: torch.Tensor):
 
 
 def compile_device(
-    spec, num_nodes: int, key: torch.Tensor, fault_kind: int, payload_slots: int
+    spec, num_nodes: int, key: torch.Tensor, fault_kind: int, payload_slots: int,
+    params: Optional[FaultParams] = None,
 ) -> Emits:
     """The campaign as a fault event stream ``Emits [S, E]`` with payload
-    ``(action, victim, t_lo, t_hi)``."""
+    ``(action, victim, t_lo, t_hi)``. A ``FaultEnvelope`` compiles the
+    per-lane candidates in ``params`` (tensors on the keys' device)
+    through the padded derivation, with the enabled rows moved to the
+    front in order: ``push_many`` gives emit ``e`` the ``e``-th free slot
+    and ties break by slot, so only a hole-free stream takes the slots
+    the static path's stream takes."""
     if payload_slots < 4:
         raise ValueError(
             f"fault events need 4 payload slots (action, victim, t_lo, "
             f"t_hi); the workload has {payload_slots}"
         )
-    times, actions, victims = schedule_events(spec, num_nodes, key)
+    if isinstance(spec, FaultEnvelope):
+        if params is None:
+            raise ValueError(
+                "compiling a FaultEnvelope needs the candidate's FaultParams "
+                "(spec_to_params)"
+            )
+        times, actions, victims, enables = schedule_events_padded(
+            spec, params, num_nodes, key
+        )
+        order = torch.argsort((~enables).to(torch.int32), dim=1, stable=True)
+        times = torch.gather(times, 1, order)
+        actions = torch.gather(actions, 1, order)
+        victims = torch.gather(victims, 1, order)
+        enables = torch.gather(enables, 1, order)
+    else:
+        times, actions, victims = schedule_events(spec, num_nodes, key)
+        enables = torch.ones(times.shape, dtype=torch.bool, device=key.device)
     s, e = times.shape
     pays = torch.zeros((s, e, payload_slots), dtype=torch.int32, device=key.device)
     if e:
@@ -261,7 +593,7 @@ def compile_device(
         times=times,
         kinds=torch.full((s, e), fault_kind, dtype=torch.int32, device=key.device),
         pays=pays,
-        enables=torch.ones((s, e), dtype=torch.bool, device=key.device),
+        enables=enables,
     )
 
 
@@ -329,13 +661,23 @@ def stalled(f: FaultState) -> torch.Tensor:
 
 
 def can_skew(spec) -> bool:
-    """Whether the static spec can ever open a clock-skew window."""
-    return _require_spec(spec).skews > 0
+    """Whether the static spec can ever open a clock-skew window (an
+    envelope decides once per campaign)."""
+    if isinstance(spec, FixedFaults):
+        return any(a in ("skew_on", "skew_off") for _, a, _ in spec.events)
+    if isinstance(spec, FaultEnvelope):
+        return spec.maxima[_F_SKEW] > 0 or spec.fixed > 0
+    return spec.skews > 0
 
 
 def can_stall(spec) -> bool:
-    """Whether the static spec can ever open a slow-disk window."""
-    return _require_spec(spec).fsync_stalls > 0
+    """Whether the static spec can ever open a slow-disk window (an
+    envelope decides once per campaign)."""
+    if isinstance(spec, FixedFaults):
+        return any(a == "fsync_stall" for _, a, _ in spec.events)
+    if isinstance(spec, FaultEnvelope):
+        return spec.maxima[_F_FSYNC] > 0 or spec.fixed > 0
+    return spec.fsync_stalls > 0
 
 
 def skewed_delay(spec, f: FaultState, node, delay_ns, rt=None):
@@ -422,7 +764,7 @@ def on_event(spec, base: NetBase, links: enet.LinkState, f: FaultState, action, 
     loss_apply = is_loss_on & (f.loss_cnt == 0)
     loss_restore = is_loss_off & (f.loss_cnt == 1)
     loss_q32 = torch.where(
-        loss_apply, spec.burst_loss_q32,
+        loss_apply, wide(spec.burst_loss_q32),
         torch.where(loss_restore, base.loss_q32, links.loss_q32.to(torch.int64)),
     ).to(torch.uint32)
     loss_cnt = torch.where(

@@ -13,11 +13,17 @@ by a murmur3 priority of ``slot * 2654435761 ^ tie`` — from the pop-min
 kernel (``cuda_queue.pop_min_decision``); ``push_many`` assigns emit
 ``e`` to the ``e``-th free slot in ascending index, exactly as the
 reference does. Overflow sets a flag instead of corrupting state.
+
+``LegacyEventQueue`` is the reference's older layout with an explicit
+``valid[S, Q]`` plane (``EngineConfig(legacy_queue=1)``). Both layouts
+encode the same fact — a slot is occupied iff its time is not
+``INVALID_TIME`` — so the pop decision reads the time plane on both, and
+only the free mask and the rebuild differ.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -31,19 +37,50 @@ class EventQueue(NamedTuple):
     pay: torch.Tensor  # int32[S, Q, P]
 
 
-def make(num_seeds: int, capacity: int, payload_slots: int, device) -> EventQueue:
-    return EventQueue(
-        time=torch.full((num_seeds, capacity), INVALID_TIME, dtype=torch.int64, device=device),
-        kind=torch.zeros((num_seeds, capacity), dtype=torch.int32, device=device),
-        pay=torch.zeros((num_seeds, capacity, payload_slots), dtype=torch.int32, device=device),
-    )
+class LegacyEventQueue(NamedTuple):
+    """The layout with the redundant validity plane (A/B only)."""
+
+    time: torch.Tensor  # int64[S, Q]
+    kind: torch.Tensor  # int32[S, Q]
+    pay: torch.Tensor  # int32[S, Q, P]
+    valid: torch.Tensor  # bool[S, Q]
 
 
-def _free(q: EventQueue) -> torch.Tensor:
+AnyQueue = Union[EventQueue, LegacyEventQueue]
+
+
+def make(
+    num_seeds: int, capacity: int, payload_slots: int, device, legacy: bool = False
+) -> AnyQueue:
+    time = torch.full((num_seeds, capacity), INVALID_TIME, dtype=torch.int64, device=device)
+    kind = torch.zeros((num_seeds, capacity), dtype=torch.int32, device=device)
+    pay = torch.zeros((num_seeds, capacity, payload_slots), dtype=torch.int32, device=device)
+    if legacy:
+        valid = torch.zeros((num_seeds, capacity), dtype=torch.bool, device=device)
+        return LegacyEventQueue(time, kind, pay, valid)
+    return EventQueue(time, kind, pay)
+
+
+def _free(q: AnyQueue) -> torch.Tensor:
+    if isinstance(q, LegacyEventQueue):
+        return ~q.valid
     return q.time == INVALID_TIME
 
 
-def push(q: EventQueue, time, kind, pay, enable) -> Tuple[EventQueue, torch.Tensor]:
+def _rebuild(q: AnyQueue, time, kind, pay, occupy=None, vacate=None) -> AnyQueue:
+    """A queue of ``q``'s layout; the legacy layout also updates its valid
+    plane (``occupy``/``vacate`` are slot masks)."""
+    if isinstance(q, LegacyEventQueue):
+        valid = q.valid
+        if occupy is not None:
+            valid = valid | occupy
+        if vacate is not None:
+            valid = valid & ~vacate
+        return LegacyEventQueue(time, kind, pay, valid)
+    return EventQueue(time, kind, pay)
+
+
+def push(q: AnyQueue, time, kind, pay, enable) -> Tuple[AnyQueue, torch.Tensor]:
     """Insert one event per seed at its first free slot (no-op where
     ``enable`` is False). Returns ``(queue', overflowed [S])``."""
     return push_many(
@@ -56,12 +93,12 @@ def push(q: EventQueue, time, kind, pay, enable) -> Tuple[EventQueue, torch.Tens
 
 
 def push_many(
-    q: EventQueue,
+    q: AnyQueue,
     times: torch.Tensor,  # int64[S, E]
     kinds: torch.Tensor,  # int32[S, E]
     pays: torch.Tensor,  # int32[S, E, P]
     enables: torch.Tensor,  # bool[S, E]
-) -> Tuple[EventQueue, torch.Tensor]:
+) -> Tuple[AnyQueue, torch.Tensor]:
     """Insert up to E events per seed in one dense pass: emit ``e`` goes to
     the ``e``-th free slot (the slot whose rank among free slots is
     ``e``). Returns ``(queue', overflowed [S])``."""
@@ -81,16 +118,18 @@ def push_many(
     eidx = torch.arange(E, dtype=torch.int32, device=times.device)
     overflow = (enables & (eidx[None, :] >= num_free[:, None])).any(dim=1)
     return (
-        EventQueue(
+        _rebuild(
+            q,
             torch.where(write, t_new, q.time),
             torch.where(write, k_new, q.kind),
             torch.where(write[:, :, None], p_new, q.pay),
+            occupy=write,
         ),
         overflow,
     )
 
 
-def pop_min(q: EventQueue, enable=True, tie_u32=None):
+def pop_min(q: AnyQueue, enable=True, tie_u32=None):
     """Remove and return each seed's earliest event; equal-time ties break
     by the per-seed draw ``tie_u32 [S]``.
 
@@ -113,7 +152,7 @@ def pop_min(q: EventQueue, enable=True, tie_u32=None):
         rm = rm & enable
     mask = (torch.arange(q.time.shape[1], device=q.time.device) == idx[:, None]) & rm[:, None]
     return (
-        EventQueue(torch.where(mask, INVALID_TIME, q.time), q.kind, q.pay),
+        _rebuild(q, torch.where(mask, INVALID_TIME, q.time), q.kind, q.pay, vacate=mask),
         t,
         kind,
         pay,
@@ -121,7 +160,7 @@ def pop_min(q: EventQueue, enable=True, tie_u32=None):
     )
 
 
-def size(q: EventQueue) -> torch.Tensor:
+def size(q: AnyQueue) -> torch.Tensor:
     """Occupied slots per seed, int64[S] — the reference's ``jnp.sum`` of
     an int32 mask promotes to int64 under x64, so its ``qmax`` is int64."""
     return (~_free(q)).sum(dim=1)

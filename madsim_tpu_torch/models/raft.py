@@ -18,7 +18,7 @@ select per state leaf a branch changed.
 from __future__ import annotations
 
 from functools import partial
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -84,13 +84,17 @@ class RaftConfig(NamedTuple):
     history: int = 16
     volatile_state: bool = False
     hist_slots: int = 0
-    # a FaultSpec campaign; None derives a crash storm from the fields
-    # above (literal schedules and envelopes are not ported yet)
-    faults: Optional[efaults.FaultSpec] = None
+    # a FaultSpec campaign, a literal FixedFaults schedule, or a
+    # FaultEnvelope (spec as data: the candidate rides in per lane as
+    # FaultParams, run_sweep's params=); None derives a crash storm from
+    # the fields above
+    faults: Optional[
+        Union[efaults.FaultSpec, efaults.FixedFaults, efaults.FaultEnvelope]
+    ] = None
     event_mix: bool = False
 
 
-def fault_spec(cfg: RaftConfig) -> efaults.FaultSpec:
+def fault_spec(cfg: RaftConfig):
     """``cfg.faults`` verbatim, or the legacy crash-storm fields."""
     if cfg.faults is not None:
         return cfg.faults
@@ -103,6 +107,7 @@ def fault_spec(cfg: RaftConfig) -> efaults.FaultSpec:
 
 
 def _rt(cfg: RaftConfig, w: "RaftState"):
+    """The static spec, or this lane's ``FaultRt`` on the envelope path."""
     return efaults.runtime_spec(fault_spec(cfg), w.frt)
 
 
@@ -148,7 +153,7 @@ class RaftState(NamedTuple):
     cmd_giveups: torch.Tensor  # int32[S]
     msgs_sent: torch.Tensor  # int32[S]
     msgs_delivered: torch.Tensor  # int32[S]
-    frt: object  # () on the static fault path
+    frt: object  # () on the static fault path, FaultRt on the envelope path
 
 
 def _flag(cond, value: int) -> torch.Tensor:
@@ -681,8 +686,10 @@ def _handle(cfg: RaftConfig, w: RaftState, now, kind, pay, rand):
     return w2, emits
 
 
-def _init(cfg: RaftConfig, key: torch.Tensor):
-    """Batched initial state and event set from key words ``[S, 2]``."""
+def _init(cfg: RaftConfig, key: torch.Tensor, params=None):
+    """Batched initial state and event set from key words ``[S, 2]``;
+    ``params`` are the lanes' ``FaultParams`` when ``cfg.faults`` is a
+    ``FaultEnvelope``."""
     s, dev = key.shape[0], key.device
     n = cfg.num_nodes
     # init draws live in their own counter namespace (0x7FFF_FFFF)
@@ -729,7 +736,7 @@ def _init(cfg: RaftConfig, key: torch.Tensor):
         cmd_giveups=z((), I32),
         msgs_sent=z((), I32),
         msgs_delivered=z((), I32),
-        frt=efaults.make_rt(fault_spec(cfg)),
+        frt=efaults.make_rt(fault_spec(cfg), params),
     )
     # one election timer per node, then the client command plan
     times = [bounded(rand[:, i], cfg.election_lo_ns, cfg.election_hi_ns) for i in range(n)]
@@ -742,7 +749,9 @@ def _init(cfg: RaftConfig, key: torch.Tensor):
         [K_ELECTION] * n + [K_CMD] * cfg.commands, dtype=I32, device=dev
     ).expand(s, -1)
     # fault campaign: the shared compiler's event stream, spliced in
-    fe = efaults.compile_device(fault_spec(cfg), n, key, K_FAULT, PAYLOAD_SLOTS)
+    fe = efaults.compile_device(
+        fault_spec(cfg), n, key, K_FAULT, PAYLOAD_SLOTS, params=params
+    )
     return w, Emits(
         times=torch.cat([torch.stack(times, dim=1), fe.times], dim=1),
         kinds=torch.cat([kinds, fe.kinds], dim=1),

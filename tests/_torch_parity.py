@@ -38,8 +38,11 @@ def assert_leaves_equal(ref, port, what="state"):
 
 
 def port_spec(spec):
-    """The port's FaultSpec with the reference spec's fields."""
-    return None if spec is None else pfaults.FaultSpec(**spec._asdict())
+    """The port's FaultSpec, FixedFaults or FaultEnvelope with the
+    reference one's fields."""
+    if spec is None:
+        return None
+    return getattr(pfaults, type(spec).__name__)(**spec._asdict())
 
 
 def port_cfg(cfg):

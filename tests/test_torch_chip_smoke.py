@@ -48,3 +48,48 @@ def test_refuses_without_cuda_or_outside_a_checkout(alone, tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_megasweep_bound_is_int32_operations():
+    """The megasweep call is bound by its integer work, not its bytes:
+    16,384 seeds x 512 events of 1,530 32-bit integer instructions (fold_in
+    and the 8 threefry blocks whose words the event reads, 58 slots) at the
+    issue ceiling (132 SMs x 128 lanes x 1.98 GHz), against ~106 MB moved."""
+    per_seed = 3_230
+    events = 16_384 * 512
+    ms, by = chip_smoke.megasweep_bound_ms(per_seed * 16_384, (per_seed - 8) * 16_384,
+                                           events, 58)
+    assert by == "operations"
+    ops = events * (9 * 68 + 8 + 58 * 15 + 40)
+    assert ms == pytest.approx(ops / (132 * 128 * 1.98e9) * 1e3)
+    assert 0.35 < ms < 0.42
+    assert chip_smoke.megasweep_ops_per_event(58) == 1_530
+
+
+def test_megasweep_phase_on_the_plain_path():
+    """Phase 6 on the CPU at a small size: the path's entry point equals
+    the plain version on every leaf, no kernel launches, and the shapes
+    of the reference's tests (the time-limit case included) agree."""
+    out = chip_smoke.phase_megasweep(torch.device("cpu"), num_seeds=16, steps=8)
+    assert out["launches"] == 0 and out["equal"] and out["max_abs_err"] == 0
+    assert out["events"] == 16 * 8
+    assert out["bound_by"] in ("bytes", "operations") and out["bound_ms"] > 0
+
+
+def test_ab_phase_refuses_the_cpu():
+    """Phase 7 measures the card: without one it refuses, never times
+    the CPU under a device name."""
+    from madsim_tpu_torch import bench_megakernel
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the A/B legitimately runs")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_megakernel.bench_batch(1024)
+
+
+def test_spec_as_data_phase_on_the_plain_path():
+    """Phase 8 on the CPU at a small size: both candidates fire fault
+    events and their first lanes equal a separate CPU run."""
+    out = chip_smoke.phase_spec_as_data(torch.device("cpu"), lanes=12, parity_lanes=4)
+    assert out["launches"] == 0 and out["steps"] > 0
+    assert min(out["fired"]) > 0

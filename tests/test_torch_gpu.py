@@ -52,3 +52,57 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
         cuda_queue.pop_min_decision(time[:, ::2], tie)
     with pytest.raises(ValueError):
         cuda_queue.pop_min_decision(time, tie[:4])
+
+
+def _probe_state(num_seeds, steps, time_limit):
+    from madsim_tpu_torch.engine import core, megakernel
+
+    wl = megakernel.probe_workload()
+    cfg = megakernel.probe_config(steps)._replace(time_limit_ns=time_limit)
+    return core.init_sweep(wl, cfg, torch.arange(num_seeds), device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "steps,seeds,tile,time_limit",
+    [(40, 16, 8, 1 << 62), (17, 16, 4, 1 << 62), (60, 8, 8, 120_000_000)],
+    ids=["40x16_tile8", "17x16_tile4", "time_limit"],
+)
+def test_megasweep_kernel_matches_plain_version_on_the_card(steps, seeds, tile, time_limit):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU or interpret mode)")
+    from madsim_tpu_torch.engine import megakernel, state_io
+
+    s0 = _probe_state(seeds, steps, time_limit)
+    before = megakernel.run_megasweep.launches
+    got = megakernel.run_megasweep(s0, steps, time_limit, tile=tile)
+    torch.cuda.synchronize()
+    assert megakernel.run_megasweep.launches == before + 1  # one launch per call
+    ref = megakernel.run_megasweep_ref(s0, steps, time_limit)
+    a, b = state_io.to_numpy_leaves(ref), state_io.to_numpy_leaves(got)
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        assert (x == y).all(), f"leaf {i} differs"
+    if time_limit < 1 << 62:
+        assert bool(got.done.any())  # the limit fired for some seed
+
+
+@pytest.mark.gpu
+def test_megasweep_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from madsim_tpu_torch.engine import core, megakernel
+    from madsim_tpu_torch.models import raft
+
+    s0 = _probe_state(16, 4, 1 << 62)
+    with pytest.raises(ValueError, match="multiple of tile"):
+        megakernel.run_megasweep(s0, 4, tile=5)
+    wide = s0._replace(cover=torch.zeros((16, 1), dtype=torch.uint32, device="cuda"))
+    with pytest.raises(ValueError, match="coverage"):
+        megakernel.run_megasweep(wide, 4, tile=8)
+    cfg = raft.RaftConfig(num_nodes=3)
+    other = core.init_sweep(raft.workload(cfg), raft.engine_config(cfg), torch.arange(8),
+                            device="cuda")
+    with pytest.raises(ValueError):
+        megakernel.run_megasweep(other, 4, tile=8)

@@ -19,7 +19,10 @@ MODULES = [
     "madsim_tpu_torch.engine.rng",
     "madsim_tpu_torch.engine.ops",
     "madsim_tpu_torch.engine.queue",
+    "madsim_tpu_torch.engine.cuda_build",
     "madsim_tpu_torch.engine.cuda_queue",
+    "madsim_tpu_torch.engine.cuda_megasweep",
+    "madsim_tpu_torch.engine.megakernel",
     "madsim_tpu_torch.engine.core",
     "madsim_tpu_torch.engine.net",
     "madsim_tpu_torch.engine.faults",
@@ -28,6 +31,7 @@ MODULES = [
     "madsim_tpu_torch.oracle.history",
     "madsim_tpu_torch.models._common",
     "madsim_tpu_torch.models.raft",
+    "madsim_tpu_torch.bench_megakernel",
 ]
 
 
