@@ -32,10 +32,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    through ``run_megasweep``, its launch count zeroed just before and
    read just after), then the reference test's shapes (40 steps x 16
    seeds, tile 8; 17 x 16, tile 4) and the time-limit case (60 steps, 8
-   seeds, limit 120 ms, where some seed must end done) — every leaf
-   exactly equal; the kernel's device time per call from a CUDA graph of
-   back-to-back launches timed by CUDA events, the plain version's time
-   and the bound;
+   seeds, limit 120 ms, where some seed must end done), and three edited
+   probe states at 40 x 16 (``PROBE_STATES``: payload nodes whose ring
+   cell wraps in int32, tied deadlines, empty queues) — every leaf
+   exactly equal, one launch per call; the work the events needed,
+   counted on the plain path (``run_megasweep_counted``: events, taken
+   events, tied pops, live-slot visits), and from it the bound; the
+   kernel's device time per call from a CUDA graph of back-to-back
+   launches timed by CUDA events, and the plain version's time;
 7. the A/B at 16,384 seeds through ``bench_megakernel.bench_batch``;
 8. the spec-as-data raft path: the flagship with its fault spec replaced
    by a ``FaultEnvelope`` over two candidates (the flagship's spec and
@@ -85,22 +89,30 @@ INT32_OPS_PER_S = SMS * ISSUE_LANES_PER_SM * SM_CLOCK_HZ
 # integer operations per slot: the murmur finalizer (2 multiplies, 3
 # shifts, 3 xors, the iota multiply and xor) and the 3-way compare/select
 OPS_PER_SLOT = 14
-# integer operations of one probe event (megasweep), counted from
-# csrc/sim_math.cuh and megasweep.cu: the threefry-2x32 blocks the event
-# needs, fold_in and one per word it reads (w0..w7: jitter, tie and the
-# handler's six draws; the other 7 of the engine's 15 reach no leaf), of
-# 68 each (20 rounds of add, rotate, xor; the key schedule's xors in one
-# 3-input op; the counter's add; 5 injections into x1 of one 3-input add
-# each, the injections into x0 folded into the next round's add but the
-# last), one xor per word folding its block's two outputs; per queue
-# slot 13 for the murmur priority (9: slot x 2654435761 is the same every
-# event) and the (time, prio, slot) compare (4), plus 2 for the free-slot
-# search and the occupancy count; and 40 for the clock, the handler, the
-# push's write and the counters
+# integer operations of the probe events of one megasweep call, counted
+# from csrc/sim_math.cuh and probe_event.cuh for the work this run's
+# events need (megakernel.run_megasweep_counted counts the events on the
+# plain path), not the most they could: a threefry-2x32 block is 68
+# instructions (20 rounds of add, rotate, xor; the key schedule's xors in
+# one 3-input op; the counter's add; 5 injections into x1 of one 3-input
+# add each, the injections into x0 folded into the next round's add but
+# the last), a draw word one more (the xor of its block's two outputs).
+# Per event: fold_in (68), w0, the clock jitter (69), and 40 for the
+# clock, the masks, the counters and the occupancy; per live slot at the
+# pop, 4 (its lowest set bit, the deadline's load, the compare and the
+# select); per taken event, w2..w7, the handler's six draws (6 x 69; the
+# handler's ring write, push and counters are in the 40); per event whose
+# minimum deadline is tied, w1 (69), and per slot at that minimum 13 (the
+# murmur priority, 9, since slot x 2654435761 is the same every event,
+# and the (prio, slot) compare-select, 4). A unique minimum needs no
+# priority, and an empty queue pops nothing.
 OPS_THREEFRY_BLOCK = 68
-WORDS_READ = 8
-OPS_PER_SLOT_EVENT = 13 + 2
-OPS_PER_EVENT_FIXED = 40
+OPS_DRAW_WORD = OPS_THREEFRY_BLOCK + 1
+OPS_PER_EVENT = OPS_THREEFRY_BLOCK + OPS_DRAW_WORD + 40
+OPS_PER_LIVE_VISIT = 4
+OPS_PER_TAKEN_EVENT = 6 * OPS_DRAW_WORD
+OPS_PER_TIED_EVENT = OPS_DRAW_WORD
+OPS_PER_TIED_SLOT = 13
 
 PROBE_SEEDS = 16_384
 PROBE_STEPS = 512
@@ -289,18 +301,20 @@ def bound_ms(num_seeds: int, capacity: int, int32_ops_per_s: float = INT32_OPS_P
     return _bound(bytes_moved, num_seeds * capacity * OPS_PER_SLOT, int32_ops_per_s)
 
 
-def megasweep_ops_per_event(capacity: int) -> int:
-    return ((1 + WORDS_READ) * OPS_THREEFRY_BLOCK + WORDS_READ
-            + capacity * OPS_PER_SLOT_EVENT + OPS_PER_EVENT_FIXED)
+def megasweep_ops(counts) -> int:
+    """The integer operations the events of one megasweep call needed,
+    from their ``megakernel.MegasweepCounts``."""
+    return (counts.events * OPS_PER_EVENT + counts.live_visits * OPS_PER_LIVE_VISIT
+            + counts.taken * OPS_PER_TAKEN_EVENT + counts.tied * OPS_PER_TIED_EVENT
+            + counts.tied_slots * OPS_PER_TIED_SLOT)
 
 
-def megasweep_bound_ms(bytes_read: int, bytes_written: int, events: int, capacity: int,
+def megasweep_bound_ms(bytes_read: int, bytes_written: int, counts,
                        int32_ops_per_s: float = INT32_OPS_PER_S):
     """Least time for one megasweep call: its state read and written once
-    over HBM bandwidth vs the integer operations of the ``events`` it
-    ran (this run's data) over the issue ceiling."""
-    return _bound(bytes_read + bytes_written, events * megasweep_ops_per_event(capacity),
-                  int32_ops_per_s)
+    over HBM bandwidth vs the integer operations its events needed (this
+    run's counts) over the issue ceiling."""
+    return _bound(bytes_read + bytes_written, megasweep_ops(counts), int32_ops_per_s)
 
 
 def phase_main_path(dev, num_seeds: int = NUM_SEEDS):
@@ -401,14 +415,51 @@ def phase_replay(dev) -> None:
         "card == CPU on every trace key and final leaf")
 
 
-def probe_state(dev, num_seeds: int, steps: int, time_limit: int = 1 << 62):
+def probe_state(dev, num_seeds: int, steps: int, time_limit: int = 1 << 62, edit=None):
+    """The probe workload's initial state over seeds 0..num_seeds-1, its
+    queue's deadlines and payloads changed in place by ``edit(time,
+    pay)`` when given."""
     import torch
 
     from madsim_tpu_torch.engine import core, megakernel
 
     cfg = megakernel.probe_config(steps)._replace(time_limit_ns=time_limit)
-    return core.init_sweep(megakernel.probe_workload(), cfg, torch.arange(num_seeds),
-                           device=dev)
+    state = core.init_sweep(megakernel.probe_workload(), cfg, torch.arange(num_seeds),
+                            device=dev)
+    if edit is None:
+        return state
+    time, pay = state.queue.time.clone(), state.queue.pay.clone()
+    edit(time, pay)
+    return state._replace(queue=state.queue._replace(time=time, pay=pay))
+
+
+def ring_row_fault(time, pay) -> None:
+    """Payload word 0 outside [0, 5) in the three earliest live slots: the
+    handler's ring cell node * 32 + idx wraps in int32 into rows 1, 3 and
+    4 (a kernel that writes row ``node`` only for ``node`` in [0, 5)
+    writes none)."""
+    pay[:, 0, 0] = 2**27 + 1
+    pay[:, 1, 0] = -(2**27) + 3
+    pay[:, 2, 0] = 3 * 2**27 + 4
+
+
+def tied_deadlines(time, pay) -> None:
+    """Live slots sharing the minimum deadline: three at 3 ms, then two at
+    5 ms, so the pop's murmur tie-break decides three events per seed."""
+    time[:, 0:3] = 3_000_000
+    time[:, 3:5] = 5_000_000
+
+
+def empty_queue(time, pay) -> None:
+    """Every other seed's queue empty: its first event finds nothing."""
+    time[::2] = (1 << 63) - 1
+
+
+# (name, edit) of the probe states beside the reference's shapes, each run
+# at 40 steps x 16 seeds
+PROBE_STATES = (("ring_row_fault", ring_row_fault), ("tied_deadlines", tied_deadlines),
+                ("empty_queue", empty_queue))
+PROBE_STATE_SHAPE = (40, 16)
 
 
 def phase_megasweep(dev, num_seeds: int = PROBE_SEEDS, steps: int = PROBE_STEPS,
@@ -433,31 +484,44 @@ def phase_megasweep(dev, num_seeds: int = PROBE_SEEDS, steps: int = PROBE_STEPS,
     n = _leaves_equal(ref, got, f"megasweep at {num_seeds} seeds x {steps} steps")
     log(f"megasweep == plain at {num_seeds} seeds x {steps} steps: {n} leaves exactly "
         f"equal (tolerance 0); {launches} kernel launches")
-    events = int((got.ctr.to(torch.int64) - s0.ctr.to(torch.int64)).sum())
-    for c_steps, c_seeds, tile, limit in PROBE_CASES:
-        c0 = probe_state(dev, c_seeds, c_steps, limit)
+    # the work the bound counts: the same events again on the plain path
+    counted, counts = megakernel.run_megasweep_counted(s0, steps)
+    _leaves_equal(ref, counted, "the counting pass")
+    cases = [(f"steps={c_steps} seeds={c_seeds} tile={tile} time_limit={limit}",
+              probe_state(dev, c_seeds, c_steps, limit), c_steps, tile, limit)
+             for c_steps, c_seeds, tile, limit in PROBE_CASES]
+    c_steps, c_seeds = PROBE_STATE_SHAPE
+    cases += [(f"{name} steps={c_steps} seeds={c_seeds}",
+               probe_state(dev, c_seeds, c_steps, edit=edit), c_steps, c_seeds, 1 << 62)
+              for name, edit in PROBE_STATES]
+    for what, c0, c_steps, tile, limit in cases:
+        before = megakernel.run_megasweep.launches
         c_got = megakernel.run_megasweep(c0, c_steps, limit, tile=tile)
+        c_launches = megakernel.run_megasweep.launches - before
         c_ref = megakernel.run_megasweep_ref(c0, c_steps, limit)
-        _leaves_equal(c_ref, c_got, f"megasweep case {(c_steps, c_seeds, tile, limit)}")
+        _leaves_equal(c_ref, c_got, f"megasweep case {what}")
+        if dev.type == "cuda" and c_launches != 1:
+            raise SystemExit(f"megasweep case {what}: {c_launches} launches, not 1")
         if limit < 1 << 62 and not bool(c_got.done.any()):
             raise SystemExit("time-limit case: no seed ended done")
-        log(f"megasweep == plain at steps={c_steps} seeds={c_seeds} tile={tile} "
-            f"time_limit={limit}: every leaf exactly equal "
-            f"(done {int(c_got.done.sum())}/{c_seeds})")
+        log(f"megasweep == plain at {what}: every leaf exactly equal "
+            f"(done {int(c_got.done.sum())}/{c_got.done.shape[0]}, {c_launches} launches)")
     planes = cuda_megasweep.planes(s0)
-    cap = s0.queue.time.shape[1]
     read = sum(t.numel() * t.element_size() for t in planes.values())
     written = read - planes["key"].numel() * planes["key"].element_size()
-    b_ms, b_by = megasweep_bound_ms(read, written, events, cap, int32_ops_per_s)
+    b_ms, b_by = megasweep_bound_ms(read, written, counts, int32_ops_per_s)
+    log(f"megasweep work at {num_seeds} seeds x {steps} steps (plain-path count): "
+        f"{counts.events} events, {counts.taken} taken, {counts.tied} tied, "
+        f"{counts.tied_slots} slots at tied minima, {counts.live_visits} live-slot visits")
     out = {"launches": launches, "equal": True, "max_abs_err": 0, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "events": events,
-           "bytes": read + written, "ops": events * megasweep_ops_per_event(cap)}
+           "bound_ms": b_ms, "bound_by": b_by, "counts": counts,
+           "bytes": read + written, "ops": megasweep_ops(counts)}
     if dev.type != "cuda":
         return out
 
     # the kernel alone, on its own planes (each launch runs `steps` more
-    # events of every seed: the probe never empties its queue, so the
-    # work per launch is the same)
+    # events of every seed: the probe never empties its queue, so each
+    # launch does the work of the first, which the bound counts)
     def launch():
         cuda_megasweep.launch(planes, steps, 1 << 62)
 
@@ -465,11 +529,12 @@ def phase_megasweep(dev, num_seeds: int = PROBE_SEEDS, steps: int = PROBE_STEPS,
     out["launch"] = launch
     out["host_paced_ms"] = time_ms(lambda: megakernel.run_megasweep(s0, steps, tile=num_seeds),
                                    reps=5, rounds=3)
-    log(f"megasweep at S={num_seeds} Q={cap} steps={steps}: kernel {out['ms']:.6f} ms per "
-        f"call (CUDA graph of 10 launches; "
+    log(f"megasweep at S={num_seeds} Q={s0.queue.time.shape[1]} steps={steps}: kernel "
+        f"{out['ms']:.6f} ms per call (CUDA graph of 10 launches; "
         f"run_megasweep host-paced {out['host_paced_ms']:.6f} ms), plain {plain_ms:.6f} ms "
         f"per call (one call, host clock after synchronize); bound {b_ms:.6f} ms "
-        f"({b_by}: {read + written} B, {out['ops']} int32 ops at {int32_ops_per_s:.6e}/s)")
+        f"({b_by}: {read + written} B, {out['ops']} int32 ops at {int32_ops_per_s:.6e}/s; "
+        f"{out['ops'] / counts.events:.3f} per event)")
     return out
 
 

@@ -7,13 +7,16 @@ uint32 key as int64 words and the bool leaves as uint8, because CUDA
 torch has no uint32 kernels and the C interface wants plain bytes —
 ``launch`` runs ``steps`` events for every seed of the planes, and
 ``to_state`` builds the new ``EngineState`` with the state's own dtypes.
-``megakernel.run_megasweep`` drives these and counts the launches.
+``pointers`` lists the planes' addresses in the C entry point's order
+(the CPU tests hand the same planes to the kernel's event function built
+for the host). ``megakernel.run_megasweep`` drives these and counts the
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -23,7 +26,7 @@ from .queue import EventQueue
 
 PAYLOAD_SLOTS = 8
 RING = (5, 32)
-MAX_CAPACITY = 64  # two queue slots per lane of a warp
+MAX_CAPACITY = 64  # the bits of a seed's live mask
 
 _ORDER = ("qtime", "qkind", "qpay", "key", "now", "ctr", "done", "ov",
           "qmax", "ring", "acc", "nsent")
@@ -76,6 +79,11 @@ def planes(state: EngineState) -> Dict[str, torch.Tensor]:
     return {k: t.contiguous().clone() for k, t in p.items()}
 
 
+def pointers(p: Dict[str, torch.Tensor]) -> List[int]:
+    """The planes' addresses in the C entry point's argument order."""
+    return [p[k].data_ptr() for k in _ORDER]
+
+
 def launch(p: Dict[str, torch.Tensor], steps: int, time_limit: int) -> None:
     """One kernel launch: ``steps`` events for every seed of the planes."""
     if steps < 0:
@@ -84,7 +92,7 @@ def launch(p: Dict[str, torch.Tensor], steps: int, time_limit: int) -> None:
         raise ValueError(f"time_limit {time_limit} is not an int64")
     qtime = p["qtime"]
     rc = build().madsim_megasweep(
-        *[p[k].data_ptr() for k in _ORDER], qtime.shape[0], qtime.shape[1], steps, time_limit,
+        *pointers(p), qtime.shape[0], qtime.shape[1], steps, time_limit,
         torch.cuda.current_stream(qtime.device).cuda_stream,
     )
     if rc != 0:

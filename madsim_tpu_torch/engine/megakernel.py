@@ -13,11 +13,15 @@ compared leaf for leaf.
 - ``run_megasweep_ref(state, steps, time_limit)``: the plain version —
   ``core.step_batch`` exactly ``steps`` times (equal to ``core.drive``
   with ``max_steps=steps``, since a done seed is a frozen no-op).
+- ``run_megasweep_counted(state, steps, time_limit)``: the plain
+  version's loop, also counting the work its events needed (events,
+  taken events, tied pops, the slots at tied minima, live-slot visits),
+  from which ``chip_smoke.py`` computes the kernel's bound.
 - ``run_megasweep(state, steps, time_limit, tile)``: ``steps`` events per
   seed in one launch of ``csrc/megasweep.cu`` over the whole batch on a
-  CUDA state (the state stays in registers for all ``steps`` events); the
-  plain version on a CPU state. ``run_megasweep.launches`` counts kernel
-  launches.
+  CUDA state (one thread per seed, its queue in shared memory for all
+  ``steps`` events); the plain version on a CPU state.
+  ``run_megasweep.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from . import cuda_megasweep
 from .core import Emits, EngineConfig, EngineState, Workload, step_batch
+from .cuda_queue import INVALID_TIME
 from .rng import M32, bounded
 
 _N = 5  # nodes (raft parity)
@@ -133,6 +138,42 @@ def run_megasweep_ref(
     return state
 
 
+class MegasweepCounts(NamedTuple):
+    """What a megasweep's events needed, counted on the plain path."""
+
+    events: int  # (seed, step) pairs where the seed was live
+    taken: int  # events that ran the handler
+    tied: int  # events whose minimum deadline two or more slots held
+    tied_slots: int  # the slots at those tied minima
+    live_visits: int  # live slots at each event's pop, summed
+
+
+def run_megasweep_counted(
+    state: EngineState, steps: int, time_limit: int = 1 << 62
+) -> Tuple[EngineState, MegasweepCounts]:
+    """``run_megasweep_ref``'s loop, also returning what its events
+    needed: before each step, the live seeds' queue occupancy and whether
+    their minimum deadline is tied; after it, which seeds advanced."""
+    wl = probe_workload()
+    cfg = EngineConfig(
+        queue_capacity=state.queue.time.shape[1], time_limit_ns=time_limit, max_steps=steps
+    )
+    counts = torch.zeros(5, dtype=torch.int64, device=state.now_ns.device)
+    for _ in range(steps):
+        t = state.queue.time
+        live = ~state.done
+        tmin = t.min(dim=1).values
+        at_min = (t == tmin[:, None]).sum(dim=1)
+        tied = live & (tmin != INVALID_TIME) & (at_min > 1)
+        ctr = state.ctr
+        state = step_batch(wl, cfg, state, device=state.now_ns.device)
+        counts += torch.stack([
+            live.sum(), (state.ctr != ctr).sum(), tied.sum(), (at_min * tied).sum(),
+            ((t != INVALID_TIME).sum(dim=1) * live).sum(),
+        ])
+    return state, MegasweepCounts(*counts.tolist())
+
+
 def _check(state: EngineState, tile: int) -> None:
     """What the reference's ``run_megasweep`` refuses."""
     s = state.seed.shape[0]
@@ -161,10 +202,10 @@ def run_megasweep(
 
     ``tile`` keeps the reference's contract only: ``S`` must be a
     multiple of it. (The reference makes one ``pallas_call`` per tile to
-    fit the TPU's VMEM; on the card every seed's state lives in its own
-    warp's registers whatever the launch size, so one launch of ``S / 8``
-    blocks of eight one-warp seeds runs the whole batch, and ``tile``
-    does not change it.) On a CUDA state the kernel runs the events; on a
+    fit the TPU's VMEM; on the card every seed is one thread, its queue in
+    its block's shared memory whatever the launch size, so one launch of
+    ``S / 64`` blocks runs the whole batch, and ``tile`` does not change
+    it.) On a CUDA state the kernel runs the events; on a
     CPU state the plain version runs. Any other device raises."""
     _check(state, tile)
     dev = state.now_ns.device

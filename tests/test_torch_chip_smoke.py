@@ -51,28 +51,50 @@ def test_refuses_without_cuda_or_outside_a_checkout(alone, tmp_path):
 
 
 def test_megasweep_bound_is_int32_operations():
-    """The megasweep call is bound by its integer work, not its bytes:
-    16,384 seeds x 512 events of 1,530 32-bit integer instructions (fold_in
-    and the 8 threefry blocks whose words the event reads, 58 slots) at the
-    issue ceiling (132 SMs x 128 lanes x 1.98 GHz), against ~106 MB moved."""
+    """The megasweep call is bound by the integer work its events need,
+    not by its bytes, counted on a plain-path run: on the probe every
+    event is taken with 5 live slots at its pop and no tied minimum, so
+    it needs 611 32-bit instructions (fold_in 68, w0 69, 40 fixed, 5 x 4
+    at the pop, w2..w7 6 x 69); 16,384 seeds x 512 such events are about
+    0.153 ms at the issue ceiling (132 SMs x 128 lanes x 1.98 GHz),
+    against ~106 MB moved (0.032 ms). A tied minimum adds w1 (69) and 13
+    per slot at it."""
+    from madsim_tpu_torch.engine import megakernel
+
+    cpu = torch.device("cpu")
+    _, counts = megakernel.run_megasweep_counted(chip_smoke.probe_state(cpu, 32, 16), 16)
+    events = 32 * 16
+    assert counts == (events, events, 0, 0, 5 * events)
+    assert chip_smoke.megasweep_ops(counts) == 611 * events
+    scale = 16_384 * 512 // events  # the same events at the chip run's size
+    full = megakernel.MegasweepCounts(*(n * scale for n in counts))
     per_seed = 3_230
-    events = 16_384 * 512
-    ms, by = chip_smoke.megasweep_bound_ms(per_seed * 16_384, (per_seed - 8) * 16_384,
-                                           events, 58)
+    ms, by = chip_smoke.megasweep_bound_ms(per_seed * 16_384, (per_seed - 8) * 16_384, full)
     assert by == "operations"
-    ops = events * (9 * 68 + 8 + 58 * 15 + 40)
-    assert ms == pytest.approx(ops / (132 * 128 * 1.98e9) * 1e3)
-    assert 0.35 < ms < 0.42
-    assert chip_smoke.megasweep_ops_per_event(58) == 1_530
+    assert ms == pytest.approx(16_384 * 512 * 611 / (132 * 128 * 1.98e9) * 1e3)
+    assert 0.15 < ms < 0.16
+
+    steps, seeds = chip_smoke.PROBE_STATE_SHAPE
+    tied_state = chip_smoke.probe_state(cpu, seeds, steps, edit=chip_smoke.tied_deadlines)
+    _, tied = megakernel.run_megasweep_counted(tied_state, steps)
+    assert (tied.tied, tied.tied_slots) == (3 * seeds, 7 * seeds)  # 3-, 2- and 2-way
+    untied = tied._replace(tied=0, tied_slots=0)
+    assert (chip_smoke.megasweep_ops(tied) - chip_smoke.megasweep_ops(untied)
+            == 3 * seeds * 69 + 7 * seeds * 13)
+    empty = chip_smoke.probe_state(cpu, seeds, steps, edit=chip_smoke.empty_queue)
+    _, none_found = megakernel.run_megasweep_counted(empty, steps)
+    # an empty seed's one event finds nothing and takes nothing
+    assert none_found.events - none_found.taken == seeds // 2
 
 
 def test_megasweep_phase_on_the_plain_path():
     """Phase 6 on the CPU at a small size: the path's entry point equals
     the plain version on every leaf, no kernel launches, and the shapes
-    of the reference's tests (the time-limit case included) agree."""
+    of the reference's tests (the time-limit case included) and the
+    edited probe states agree."""
     out = chip_smoke.phase_megasweep(torch.device("cpu"), num_seeds=16, steps=8)
     assert out["launches"] == 0 and out["equal"] and out["max_abs_err"] == 0
-    assert out["events"] == 16 * 8
+    assert out["counts"].events == out["counts"].taken == 16 * 8
     assert out["bound_by"] in ("bytes", "operations") and out["bound_ms"] > 0
 
 

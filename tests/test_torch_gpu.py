@@ -1,6 +1,7 @@
-"""The pop-min CUDA kernel against its plain version, on the card.
+"""The pop-min and megasweep CUDA kernels against their plain versions,
+on the card.
 
-Marked ``gpu``: the kernel has no CPU or interpret mode, so this skips
+Marked ``gpu``: the kernels have no CPU or interpret mode, so these skip
 where no CUDA card is present. This file imports no JAX (the card's
 machine has none); run it there with
 ``python -m pytest tests/test_torch_gpu.py -m gpu -q``."""
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from madsim_tpu_torch.engine import cuda_queue
 
 INV = cuda_queue.INVALID_TIME
@@ -22,15 +24,24 @@ def _time_plane(rs, s, q, free_frac, time_hi):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "free_frac,time_hi,capacity",
-    [(0.3, 4, 64), (1.0, 4, 64), (0.0, 10**9, 64), (0.5, 3, 58), (0.2, 2, 200)],
-    ids=["ties", "empty", "full", "q58", "q200"],
+    "free_frac,time_hi,capacity,offset",
+    [(0.3, 4, 64, 0), (1.0, 4, 64, 0), (0.0, 10**9, 64, 0), (0.5, 3, 58, 0),
+     (0.2, 2, 200, 0), (0.4, 3, 37, 0), (1.0, 4, 37, 0), (0.3, 4, 64, 1)],
+    ids=["ties", "empty", "full", "q58", "q200", "q37_odd", "q37_odd_empty",
+         "q64_unaligned"],
 )
-def test_kernel_matches_plain_version_on_the_card(free_frac, time_hi, capacity):
+def test_kernel_matches_plain_version_on_the_card(free_frac, time_hi, capacity, offset):
+    """Q = 64 and 58 take the kernel's 16-byte loads; an odd Q, and a
+    plane that starts 8 bytes past a 16-byte boundary, its 8-byte loads."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU or interpret mode)")
     rs = np.random.RandomState(9)
-    time = _time_plane(rs, 16384, capacity, free_frac, time_hi).cuda()
+    plane = _time_plane(rs, 16384, capacity, free_frac, time_hi).cuda()
+    # the same values, `offset` int64 words into a fresh allocation
+    time = torch.empty(plane.numel() + offset, dtype=torch.int64, device="cuda")
+    time = time[offset:].view(plane.shape)
+    time.copy_(plane)
+    assert time.is_contiguous() and time.data_ptr() % 16 == 8 * offset
     tie = torch.from_numpy(rs.randint(0, 2**32, size=16384).astype(np.int64)).cuda()
     before = cuda_queue.pop_min_decision.launches
     slot, found = cuda_queue.pop_min_decision(time, tie)
@@ -86,6 +97,27 @@ def test_megasweep_kernel_matches_plain_version_on_the_card(steps, seeds, tile, 
         assert (x == y).all(), f"leaf {i} differs"
     if time_limit < 1 << 62:
         assert bool(got.done.any())  # the limit fired for some seed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,edit", chip_smoke.PROBE_STATES,
+                         ids=[name for name, _ in chip_smoke.PROBE_STATES])
+def test_megasweep_kernel_matches_plain_version_on_edited_states(name, edit):
+    """Ring cells reached through an int32 wrap-around of payload word 0,
+    tied deadlines (the kernel's lazily drawn tie word) and empty queues:
+    kernel == plain on every leaf, one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU or interpret mode)")
+    from madsim_tpu_torch.engine import megakernel, state_io
+
+    steps, seeds = chip_smoke.PROBE_STATE_SHAPE
+    s0 = chip_smoke.probe_state(torch.device("cuda"), seeds, steps, edit=edit)
+    before = megakernel.run_megasweep.launches
+    got = megakernel.run_megasweep(s0, steps, tile=seeds)
+    torch.cuda.synchronize()
+    assert megakernel.run_megasweep.launches == before + 1
+    ref = megakernel.run_megasweep_ref(s0, steps)
+    assert state_io.first_difference(ref, got) is None, name
 
 
 @pytest.mark.gpu

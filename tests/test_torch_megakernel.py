@@ -1,12 +1,15 @@
 """Port parity: the megasweep path (the probe workload, the plain
-``run_megasweep_ref`` and ``run_megasweep`` on the CPU) and the kernels'
-shared per-lane arithmetic.
+``run_megasweep_ref`` and ``run_megasweep`` on the CPU), the megasweep
+kernel's own per-seed event function and the kernels' shared per-lane
+arithmetic.
 
 The reference runs as its own tests run it on the CPU: ``core._drive``
-and ``megakernel.run_megasweep(..., interpret=True)``. The header
-``csrc/sim_math.cuh`` (threefry, murmur, mulhi, the clock step), built by
-g++ into a small ctypes library, is held to the port's torch functions
-and to the reference kernel's helpers. Exact equality throughout."""
+and ``megakernel.run_megasweep(..., interpret=True)``. The headers
+``csrc/sim_math.cuh`` (threefry, murmur, mulhi, the clock step) and
+``csrc/probe_event.cuh`` (the kernel's ``probe_run``), built by g++ into a
+small ctypes library, are held to the port's torch functions, to the
+reference kernel's helpers and to the reference's ``_drive``. Exact
+equality throughout."""
 
 import ctypes
 import os
@@ -24,9 +27,10 @@ from madsim_tpu.engine import megakernel as rmk
 from madsim_tpu.engine.rng import event_bits as r_event_bits
 from madsim_tpu.engine.rng import seed_key as r_seed_key
 from madsim_tpu_torch.engine import core as pcore
-from madsim_tpu_torch.engine import cuda_queue, rng, state_io, tree
+from madsim_tpu_torch.engine import cuda_megasweep, cuda_queue, rng, state_io, tree
 from madsim_tpu_torch.engine import megakernel as pmk
 
+import chip_smoke
 from _torch_parity import assert_leaves_equal, port_ecfg, ref_leaves
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,11 +40,26 @@ CSRC = os.path.join(REPO, "madsim_tpu_torch", "csrc")
 CASES = [(40, 16, 8, 1 << 62), (17, 16, 4, 1 << 62), (60, 8, 8, 120_000_000)]
 
 
-def _pair(steps, seeds, time_limit):
+# the edited probe states of chip_smoke.PROBE_STATES at their shape: payload
+# nodes whose ring cell wraps in int32, tied deadlines, empty queues
+STATES = [(*chip_smoke.PROBE_STATE_SHAPE, edit) for _, edit in chip_smoke.PROBE_STATES]
+STATE_IDS = [name for name, _ in chip_smoke.PROBE_STATES]
+
+
+def _pair(steps, seeds, time_limit, edit=None):
+    """The reference's and the port's initial probe states, their queues
+    changed alike by ``edit(time, pay)`` when given."""
     rcfg = rmk.probe_config(max_steps=steps)._replace(time_limit_ns=time_limit)
     r0 = rcore._init(rmk.probe_workload(), rcfg, jnp.arange(seeds, dtype=jnp.int64))
     p0 = pcore.init_sweep(pmk.probe_workload(), port_ecfg(rcfg), np.arange(seeds),
                           device="cpu")
+    if edit is not None:
+        time = torch.from_numpy(np.array(r0.queue.time))
+        pay = torch.from_numpy(np.array(r0.queue.pay))
+        edit(time, pay)
+        r0 = r0._replace(queue=r0.queue._replace(time=jnp.asarray(time.numpy()),
+                                                 pay=jnp.asarray(pay.numpy())))
+        p0 = p0._replace(queue=p0.queue._replace(time=time, pay=pay))
     return rcfg, r0, p0
 
 
@@ -77,6 +96,20 @@ def test_probe_path_equals_reference(steps, seeds, tile, time_limit):
     assert_leaves_equal(want, state_io.to_numpy_leaves(got), "run_megasweep")
     if time_limit < 1 << 62:
         assert bool(got.done.any())  # the limit fired for some seed
+
+
+@pytest.mark.parametrize("steps,seeds,edit", STATES, ids=STATE_IDS)
+def test_probe_path_equals_reference_on_edited_states(steps, seeds, edit):
+    """The port's ``run_megasweep`` on the CPU equals the reference's
+    ``_drive`` and its Pallas kernel in interpret mode on the edited
+    states: ring cells reached through an int32 wrap-around, tied
+    deadlines and empty queues."""
+    rcfg, r0, p0 = _pair(steps, seeds, 1 << 62, edit)
+    ref = rcore._drive(rmk.probe_workload(), rcfg, r0)
+    mega = rmk.run_megasweep(r0, steps=steps, tile=seeds, interpret=True)
+    assert_leaves_equal(ref_leaves(ref), ref_leaves(mega), "reference kernel vs drive")
+    got = pmk.run_megasweep(p0, steps, tile=seeds)
+    assert_leaves_equal(ref_leaves(ref), state_io.to_numpy_leaves(got), "run_megasweep")
 
 
 def test_probe_state_carries_across_in_reference_leaf_order():
@@ -129,7 +162,37 @@ def header_lib(tmp_path_factory):
     lib.madsim_mulhi32.restype = u32
     lib.madsim_clock_step.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, u32]
     lib.madsim_clock_step.restype = ctypes.c_longlong
+    lib.madsim_megasweep_host.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_longlong])
+    lib.madsim_megasweep_host.restype = ctypes.c_int
     return lib
+
+
+@pytest.mark.parametrize(
+    "steps,seeds,time_limit,edit",
+    [(steps, seeds, limit, None) for steps, seeds, _, limit in CASES]
+    + [(steps, seeds, 1 << 62, edit) for steps, seeds, edit in STATES],
+    ids=["40x16", "17x16", "time_limit"] + STATE_IDS,
+)
+def test_kernel_event_function_equals_reference(header_lib, steps, seeds, time_limit, edit):
+    """The megasweep kernel's own arithmetic (``probe_run`` of
+    ``csrc/probe_event.cuh``, built for the host, each seed's slots
+    addressed in the planes ``cuda_megasweep.planes`` makes) equals the
+    reference's ``_drive`` on every leaf: at the reference test's shapes,
+    where payload word 0 puts the ring cell in rows 1, 3 and 4 through an
+    int32 wrap-around, where live slots tie at the minimum deadline (the
+    lazily drawn tie word) and where queues are empty."""
+    rcfg, r0, p0 = _pair(steps, seeds, time_limit, edit)
+    want = ref_leaves(rcore._drive(rmk.probe_workload(), rcfg, r0))
+    planes = cuda_megasweep.planes(p0)
+    rc = header_lib.madsim_megasweep_host(*cuda_megasweep.pointers(planes), seeds,
+                                          p0.queue.time.shape[1], steps, time_limit)
+    assert rc == 0
+    got = cuda_megasweep.to_state(p0, planes)
+    assert_leaves_equal(want, state_io.to_numpy_leaves(got), "kernel event function")
+    assert_leaves_equal(ref_leaves(r0), state_io.to_numpy_leaves(p0), "the input state")
+    if time_limit < 1 << 62:
+        assert bool(got.done.any())
 
 
 @pytest.mark.parametrize("seed", [0, 3, 123456, (1 << 32) + 5, (1 << 40) + 77])
