@@ -16,7 +16,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    events (real ties), empty queues and full queues with heavy ties —
    slot and found must be exactly equal; the kernel's and the plain
    version's device times from CUDA graphs of back-to-back calls timed
-   by CUDA events, with the host-paced times printed beside them;
+   by CUDA events, with the host-paced times printed beside them; then
+   the same at phase 9's width (16,384 seeds x 48 slots: etcd queues
+   after 100 events, empty queues, full queues with heavy ties);
 3. the main path: the MadRaft flagship (``RaftConfig(num_nodes=5,
    crashes=1)``, queue 64, 3 s horizon, 200,000 max steps) over 16,384
    seeds through ``core.run_sweep(..., device="cuda")``. The kernel's
@@ -47,11 +49,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    on, ``grid_params`` over 2 x 8,192 lanes at the 3 s horizon through
    ``core.run_sweep(..., params=..., device="cuda")``: fault events fire
    for both candidates, pop_min launches equal the ``step_batch`` calls,
-   and lanes 0-31 of each candidate equal the CPU port on every leaf.
+   and lanes 0-31 of each candidate equal the CPU port on every leaf;
+9. the checked etcd sweep (``EtcdConfig(hist_slots=256)``, queue 48, a
+   2 s horizon): (a) 32,768 seeds as two chunks of 16,384 through
+   ``oracle.screen.checked_sweep(..., workers=8, device="cuda")``, pop_min
+   launches equal to the ``step_batch`` calls, the report equal to the
+   JAX-made golden ``madsim_tpu_torch/data/etcd_checked_clean.json``,
+   its wall time and seeds/s beside its unchecked twin's
+   (``run_sweep_pipelined`` with no screen and no host work) and the
+   peak device memory; (c) lanes 0-63 of its first chunk equal the CPU
+   port leaf for leaf, and ``screen_sweep`` and ``canon_sweep`` of that
+   chunk equal the same functions on the CPU on all 16,384 lanes; (b)
+   ``bug_stale_read`` over 2,048 seeds in chunks of 1,024 with
+   ``device_decode`` on and off: history violations found, both reports
+   byte-equal to each other and to ``etcd_checked_stale.json``; (d) a
+   1,024-seed state saved mid-run on the card with ``save_sweep(...,
+   inflight=...)`` resumed through ``run_sweep_pipelined(resume_from=...)``
+   on the CPU port and on the card to equal totals.
 
 After the phases, both kernels' ``torch.profiler`` durations, from one
 profiler session, are printed beside their CUDA-graph times. The line
-before the last is ``{"kernels": [...]}``; the last is
+before the last is ``{"kernels": [...]}`` (pop_min's launches summed over
+phases 3, 8 and 9, its Q = 48 times beside the Q = 64 ones); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -120,6 +139,17 @@ PROBE_STEPS = 512
 PROBE_CASES = ((40, 16, 8, 1 << 62), (17, 16, 4, 1 << 62), (60, 8, 8, 120_000_000))
 GRID_LANES = 8_192
 GRID_PARITY_LANES = 32
+# phase 9, the checked etcd sweep: bench.py's checked leg, EtcdConfig
+# (hist_slots=256) at a 2 s horizon (queue 48). (seeds, chunk) of the
+# card's runs, clean and stale-read, then of the CPU rehearsal's
+ETCD_HIST_SLOTS = 256
+ETCD_HORIZON_NS = 2_000_000_000
+CLEAN_RUNS = ((32_768, 16_384), (48, 24))
+STALE_RUNS = ((2_048, 1_024), (32, 16))
+CHECK_WORKERS = 8
+ETCD_PARITY_SEEDS = 64
+# (seeds, steps on the card before the snapshot) of the cross-device resume
+ETCD_CKPT = (1_024, 64)
 
 
 def log(msg: str) -> None:
@@ -206,6 +236,43 @@ def profiled_kernels_ms(calls) -> dict:
     return out
 
 
+def main_path_run(dev, fn):
+    """Run ``fn()`` as a driven main path: ``core.step_batch`` calls are
+    counted and pop_min's launch count is zeroed just before and read
+    just after; returns ``(result, step_batch calls, launches, wall s)``.
+    On the card every call must have launched the kernel once."""
+    import torch
+
+    from madsim_tpu_torch.engine import core, cuda_queue
+
+    calls = [0]
+    step_batch = core.step_batch
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return step_batch(*args, **kwargs)
+
+    core.step_batch = counted
+    try:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        cuda_queue.pop_min_decision.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cuda_queue.pop_min_decision.launches
+    finally:
+        core.step_batch = step_batch
+    if dev.type == "cuda" and launches != calls[0]:
+        raise SystemExit(
+            f"pop_min launches ({launches}) != step_batch calls ({calls[0]}): "
+            "the main path did not go through the kernel on every event"
+        )
+    return out, calls[0], launches, wall
+
+
 def flagship():
     from madsim_tpu_torch.models import raft
 
@@ -216,37 +283,52 @@ def flagship():
     return raft.workload(cfg), ecfg
 
 
-def kernel_cases(dev, num_seeds: int):
-    """(name, time [S, Q], tie [S]) inputs at the main path's shape."""
+def etcd_path(stale: bool = False):
+    """Phase 9's etcd history workload and engine config (queue 48)."""
+    from madsim_tpu_torch.models import etcd
+
+    cfg = etcd.EtcdConfig(**etcd_fields(stale))
+    return etcd.workload(cfg), etcd.engine_config(cfg, time_limit_ns=ETCD_HORIZON_NS)
+
+
+def kernel_cases(dev, num_seeds: int, etcd_queue: bool = False):
+    """(name, time [S, Q], tie [S]) inputs at a path's shape: the
+    flagship's queues after 300 events (Q = 64), or phase 9's etcd
+    queues after 100 events (Q = 48), then empty and full queues with
+    heavy ties at the same width."""
     import torch
 
     from madsim_tpu_torch.engine import core, cuda_queue, rng
 
-    wl, ecfg = flagship()
+    wl, ecfg = etcd_path() if etcd_queue else flagship()
+    steps = 100 if etcd_queue else 300
+    cap = ecfg.queue_capacity
     state = core.init_sweep(wl, ecfg, torch.arange(num_seeds), device=dev)
-    for _ in range(300):
+    for _ in range(steps):
         state = core.step_batch(wl, ecfg, state, device=dev)
     # the tie-break draw the next event would use
     tie = rng.event_bits(state.key, state.ctr, wl.num_rand + 2)[:, 1]
     words = rng.bits(rng.seed_key(torch.arange(num_seeds, device=dev) + 99), 3)
-    heavy = (words[:, :1] + torch.arange(CAPACITY, device=dev)) % 3  # 3-way ties
+    heavy = (words[:, :1] + torch.arange(cap, device=dev)) % 3  # 3-way ties
     inv = cuda_queue.INVALID_TIME
+    path = "etcd" if etcd_queue else "flagship"
     return [
-        ("flagship_after_300_events", state.queue.time.contiguous(), tie),
-        ("empty", torch.full((num_seeds, CAPACITY), inv, dtype=torch.int64, device=dev),
+        (f"{path}_after_{steps}_events", state.queue.time.contiguous(), tie),
+        (f"empty_q{cap}", torch.full((num_seeds, cap), inv, dtype=torch.int64, device=dev),
          words[:, 1]),
-        ("full_heavy_ties", heavy.contiguous(), words[:, 2]),
+        (f"full_heavy_ties_q{cap}", heavy.contiguous(), words[:, 2]),
     ]
 
 
-def phase_kernel(dev, num_seeds: int = NUM_SEEDS) -> dict:
-    """The kernel against its plain version on the same inputs."""
+def phase_kernel(dev, num_seeds: int = NUM_SEEDS, etcd_queue: bool = False) -> dict:
+    """The kernel against its plain version on the same inputs, at the
+    flagship's queue width or at phase 9's (``etcd_queue``)."""
     import torch
 
     from madsim_tpu_torch.engine import cuda_queue
 
     worst = 0
-    cases = kernel_cases(dev, num_seeds)
+    cases = kernel_cases(dev, num_seeds, etcd_queue)
     for name, time_plane, tie in cases:
         slot, found = cuda_queue.pop_min_decision(time_plane, tie)
         ref_slot, ref_found = cuda_queue.pop_min_decision_ref(time_plane, tie)
@@ -263,9 +345,13 @@ def phase_kernel(dev, num_seeds: int = NUM_SEEDS) -> dict:
     slot = torch.empty((s,), dtype=torch.int32, device=dev)
     found = torch.empty((s,), dtype=torch.bool, device=dev)
     lib = cuda_queue.build()
-    args = (time_plane.data_ptr(), tie32.data_ptr(), slot.data_ptr(), found.data_ptr(), s, q)
+    # the launch holds the tensors, not just their addresses: main() calls
+    # it again after later phases, by when memory freed here may have been
+    # given back to the driver
+    planes = (time_plane, tie32, slot, found)
 
     def launch():
+        args = [t.data_ptr() for t in planes] + [s, q]
         rc = lib.madsim_pop_min(*args, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise SystemExit(f"pop_min kernel launch failed: CUDA error {rc}")
@@ -285,7 +371,8 @@ def phase_kernel(dev, num_seeds: int = NUM_SEEDS) -> dict:
     log(f"pop_min at S={s} Q={q}: kernel {kernel_ms:.6f} ms (CUDA graph of 200 launches; "
         f"host-paced {kernel_host_ms:.6f} ms), "
         f"plain {plain_ms:.6f} ms (CUDA graph; host-paced {plain_host_ms:.6f} ms)")
-    return {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms, "launch": launch}
+    return {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms, "launch": launch,
+            "capacity": q}
 
 
 def _bound(bytes_moved: int, ops: int, int32_ops_per_s: float):
@@ -322,32 +409,16 @@ def phase_main_path(dev, num_seeds: int = NUM_SEEDS):
     step_batch calls and kernel launches over exactly this run."""
     import torch
 
-    from madsim_tpu_torch.engine import core, cuda_queue
+    from madsim_tpu_torch.engine import core
     from madsim_tpu_torch.models import raft
 
     wl, ecfg = flagship()
     seeds = torch.arange(num_seeds)
-    calls = [0]
-    step_batch = core.step_batch
-
-    def counted(*args, **kwargs):
-        calls[0] += 1
-        return step_batch(*args, **kwargs)
-
-    core.step_batch = counted
-    try:
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        cuda_queue.pop_min_decision.launches = 0
-        t0 = time.perf_counter()
-        final = core.run_sweep(wl, ecfg, seeds, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = cuda_queue.pop_min_decision.launches
-    finally:
-        core.step_batch = step_batch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    final, calls, launches, wall = main_path_run(
+        dev, lambda: core.run_sweep(wl, ecfg, seeds, device=dev))
     summary = raft.sweep_summary(final)
     log("flagship summary: " + json.dumps(summary, sort_keys=True))
     if not bool(final.done.all()):
@@ -356,16 +427,11 @@ def phase_main_path(dev, num_seeds: int = NUM_SEEDS):
         raise SystemExit("the flagship sweep did no work")
     per_seed = core.state_bytes_per_seed(wl, ecfg)
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
-    log(f"main path: {num_seeds} seeds, {calls[0]} step_batch calls, "
+    log(f"main path: {num_seeds} seeds, {calls} step_batch calls, "
         f"{launches} pop_min launches, wall {wall:.6f} s, "
         f"{num_seeds / wall:.3f} seeds/s, {summary['events_total'] / wall:.3f} events/s")
     log(f"loop state {per_seed} B/seed x {num_seeds} = {per_seed * num_seeds} B; "
         f"peak device memory {peak} B")
-    if dev.type == "cuda" and launches != calls[0]:
-        raise SystemExit(
-            f"pop_min launches ({launches}) != step_batch calls ({calls[0]}): "
-            "the main path did not go through the kernel on every event"
-        )
     return final, launches
 
 
@@ -569,40 +635,22 @@ def phase_spec_as_data(dev, lanes: int = GRID_LANES, parity_lanes: int = GRID_PA
     import numpy as np
     import torch
 
-    from madsim_tpu_torch.engine import core, cuda_queue, faults
+    from madsim_tpu_torch.engine import core, faults
     from madsim_tpu_torch.models import raft
 
     wl, ecfg, params = envelope_flagship()
     k = len(params)
     seeds = np.tile(np.arange(lanes, dtype=np.int64), k)
     grid = faults.grid_params(params, lanes)
-    calls = [0]
-    step_batch = core.step_batch
-
-    def counted(*args, **kwargs):
-        calls[0] += 1
-        return step_batch(*args, **kwargs)
-
-    core.step_batch = counted
-    try:
-        cuda_queue.pop_min_decision.launches = 0
-        t0 = time.perf_counter()
-        final = core.run_sweep(wl, ecfg, seeds, device=dev, params=grid)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = cuda_queue.pop_min_decision.launches
-    finally:
-        core.step_batch = step_batch
+    final, calls, launches, wall = main_path_run(
+        dev, lambda: core.run_sweep(wl, ecfg, seeds, device=dev, params=grid))
     if not bool(final.done.all()):
         raise SystemExit("the envelope sweep hit max_steps before every lane finished")
-    if dev.type == "cuda" and launches != calls[0]:
-        raise SystemExit(f"pop_min launches ({launches}) != step_batch calls ({calls[0]})")
     fired = final.evmix.to(torch.int64)[:, raft.K_FAULT]
     per_cand = [int(fired[i * lanes:(i + 1) * lanes].sum()) for i in range(k)]
     if min(per_cand) <= 0:
         raise SystemExit(f"fault events fired per candidate {per_cand}: some candidate fired none")
-    log(f"spec-as-data: {k} candidates x {lanes} lanes, {calls[0]} step_batch calls, "
+    log(f"spec-as-data: {k} candidates x {lanes} lanes, {calls} step_batch calls, "
         f"{launches} pop_min launches, wall {wall:.6f} s; fault events fired per "
         f"candidate {per_cand}")
     cpu_seeds = np.tile(np.arange(parity_lanes, dtype=np.int64), k)
@@ -617,7 +665,168 @@ def phase_spec_as_data(dev, lanes: int = GRID_LANES, parity_lanes: int = GRID_PA
             raise SystemExit(f"candidate {i}: summary differs between the device and the CPU")
     log(f"spec-as-data parity: lanes 0-{parity_lanes - 1} of each candidate equal the CPU "
         f"port on all {n} leaves and the summary")
-    return {"launches": launches, "steps": calls[0], "fired": per_cand}
+    return {"launches": launches, "steps": calls, "fired": per_cand}
+
+
+def etcd_fields(stale: bool) -> dict:
+    """The ``EtcdConfig`` fields of phase 9's clean or stale-read runs."""
+    return {"hist_slots": ETCD_HIST_SLOTS, "bug_stale_read": stale}
+
+
+def golden_path(stale: bool) -> str:
+    name = "etcd_checked_stale.json" if stale else "etcd_checked_clean.json"
+    return os.path.join(HERE, "madsim_tpu_torch", "data", name)
+
+
+def golden_config(stale: bool) -> dict:
+    return {"etcd": etcd_fields(stale), "engine": {"time_limit_ns": ETCD_HORIZON_NS}}
+
+
+def golden_runs(stale: bool):
+    """(seeds, chunk) of the card's run and of the CPU rehearsal's."""
+    return STALE_RUNS if stale else CLEAN_RUNS
+
+
+def run_key(seeds: int, chunk: int) -> str:
+    return f"seeds={seeds} chunk={chunk}"
+
+
+def _same_report(got: dict, want: dict, what: str) -> None:
+    if json.dumps(got, sort_keys=True) != json.dumps(want, sort_keys=True):
+        raise SystemExit(f"{what}: report {json.dumps(got, sort_keys=True)} != "
+                         f"{json.dumps(want, sort_keys=True)}")
+
+
+def phase_checked_sweep(dev, clean=CLEAN_RUNS[0], stale=STALE_RUNS[0],
+                        workers: int = CHECK_WORKERS, parity_seeds: int = ETCD_PARITY_SEEDS,
+                        ckpt=ETCD_CKPT) -> dict:
+    """The checked etcd sweep (phase 9): (a) the clean sweep through
+    ``oracle.screen.checked_sweep`` against the golden report, timed with
+    its unchecked twin; (c) lanes 0-63 of its first chunk against the
+    CPU port, and the screen and canonical decode of that chunk against
+    the same functions on the CPU; (b) the stale-read bug through both
+    decode routes against its golden; (d) a snapshot taken mid-run on the
+    device resumed on the CPU and on the device."""
+    import numpy as np
+    import torch
+
+    from madsim_tpu_torch.engine import checkpoint, core, tree
+    from madsim_tpu_torch.models import etcd
+    from madsim_tpu_torch.oracle import check, history, screen
+
+    spec = etcd.history_spec()
+    cuda = dev.type == "cuda"
+    launches = steps = 0
+
+    def goldens(stale_bug: bool) -> dict:
+        with open(golden_path(stale_bug)) as f:
+            return json.load(f)["reports"]
+
+    # (a) the clean checked sweep, its first chunk kept for (c)
+    wl, ecfg = etcd_path()
+    n, chunk = clean
+    seeds = np.arange(n, dtype=np.int64)
+    firsts = []
+    run_sweep = core.run_sweep
+
+    def keep_first(*args, **kwargs):
+        out = run_sweep(*args, **kwargs)
+        if not firsts:
+            firsts.append(out)
+        return out
+
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    core.run_sweep = keep_first
+    try:
+        report, calls, got, wall = main_path_run(dev, lambda: screen.checked_sweep(
+            wl, ecfg, seeds, spec, etcd.sweep_summary, chunk_size=chunk,
+            workers=workers, device=dev))
+    finally:
+        core.run_sweep = run_sweep
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    launches, steps = launches + got, steps + calls
+    log("checked etcd sweep: " + json.dumps(report, sort_keys=True))
+    _same_report(report, goldens(False)[run_key(n, chunk)], "clean checked sweep vs golden")
+    _, u_calls, u_got, u_wall = main_path_run(dev, lambda: checkpoint.run_sweep_pipelined(
+        wl, ecfg, seeds, etcd.sweep_summary, chunk_size=chunk, device=dev))
+    launches, steps = launches + u_got, steps + u_calls
+    log(f"checked sweep: {n} seeds in {n // chunk} chunks of {chunk}, {calls} step_batch "
+        f"calls, {got} pop_min launches, wall {wall:.6f} s, {n / wall:.3f} seeds/s; "
+        f"unchecked twin {u_wall:.6f} s, {n / u_wall:.3f} seeds/s; checked/unchecked "
+        f"{wall / u_wall:.6f}; {report['hist_suspects']} suspects, "
+        f"{report['hist_violations']} history violations; peak device memory {peak} B; "
+        f"loop state {core.state_bytes_per_seed(wl, ecfg)} B/seed, queue "
+        f"{ecfg.queue_capacity}")
+    out = {"seeds": n, "chunk": chunk, "wall_s": wall, "unchecked_wall_s": u_wall,
+           "peak_bytes": peak, "report": report}
+
+    # (c) cross-device parity on the first chunk
+    first = firsts[0]
+    on_cpu = core.run_sweep(wl, ecfg, list(range(parity_seeds)), device="cpu")
+    k = _leaves_equal(on_cpu, core.lane_slice(first, parity_seeds, 0),
+                      f"etcd lanes 0-{parity_seeds - 1} vs the CPU port")
+    copy = tree.map(lambda a: a.cpu(), first)
+    s_dev, s_cpu = screen.screen_sweep(first, spec), screen.screen_sweep(copy, spec)
+    if not torch.equal(s_dev.cpu(), s_cpu):
+        raise SystemExit("screen_sweep differs between the device and the CPU")
+    for what, a, b in zip(("canon", "n_ops", "breach"), history.canon_sweep(first),
+                          history.canon_sweep(copy)):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            raise SystemExit(f"canon_sweep's {what} differs between the device and the CPU")
+    lanes = int(first.seed.shape[0])
+    log(f"checked-sweep parity: etcd lanes 0-{parity_seeds - 1} equal the CPU port on all "
+        f"{k} leaves; screen_sweep ({int(s_dev.sum())} suspects) and canon_sweep equal the "
+        f"CPU on all {lanes} lanes of the first chunk")
+    del first, firsts, copy
+
+    # (b) the stale-read bug, through both decode routes
+    wl_s, ecfg_s = etcd_path(stale=True)
+    n, chunk = stale
+    reports = []
+    for decode in (True, False):
+        rep, calls, got, _ = main_path_run(dev, lambda: screen.checked_sweep(
+            wl_s, ecfg_s, np.arange(n, dtype=np.int64), spec, etcd.sweep_summary,
+            chunk_size=chunk, workers=workers, device_decode=decode, device=dev))
+        launches, steps = launches + got, steps + calls
+        reports.append(rep)
+    _same_report(reports[0], reports[1], "stale-read report, device vs host decode")
+    _same_report(reports[0], goldens(True)[run_key(n, chunk)], "stale-read report vs golden")
+    if reports[0]["hist_violations"] <= 0:
+        raise SystemExit("the stale-read bug was not caught by the history oracle")
+    log(f"stale-read: {n} seeds in chunks of {chunk}: {reports[0]['hist_violations']} "
+        f"history violations ({reports[0]['violations']} online), equal across decode "
+        "routes and to the golden")
+    out["stale"] = reports[0]
+
+    # (d) a mid-run snapshot on the device, resumed on the CPU and here
+    n, run_steps = ckpt
+    build = os.path.join(HERE, "madsim_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, "phase9_inflight.npz")
+    state = core.init_sweep(wl, ecfg, np.arange(n), device=dev)
+    for _ in range(run_steps):
+        state = core.step_batch(wl, ecfg, state, device=dev)
+    checkpoint.save_sweep(state, path, inflight={"lo": 0, "k": n})
+
+    def resume(device):
+        like = core.init_sweep(wl, ecfg, [0], device=device)
+        snap = (checkpoint.load_sweep(path, like), checkpoint.load_inflight(path))
+        return checkpoint.run_sweep_pipelined(
+            wl, ecfg, np.arange(n), etcd.sweep_summary, chunk_size=n, resume_from=snap,
+            host_work=screen.history_host_work(spec), device=device,
+            screen=lambda final: screen.screen_sweep(final, spec))
+
+    here, calls, got, _ = main_path_run(dev, lambda: resume(dev))
+    launches, steps = launches + got, steps + calls
+    _same_report(resume("cpu"), here, "resume of the device's snapshot, CPU vs device")
+    os.remove(path)
+    log(f"checkpoint: {n} seeds saved after {run_steps} steps on {dev.type}, resumed on the "
+        f"CPU and on {dev.type} to equal totals ({here['events_total']} events)")
+    check.shutdown_pools()
+    out.update(launches=launches, steps=steps)
+    return out
 
 
 def sm_clock_hz() -> float:
@@ -662,17 +871,24 @@ def main() -> int:
         log(f"[{name}] " + cuda_build.LOGS.get(name, "(an identical build was loaded)").strip())
 
     k = phase_kernel(dev)
+    k48 = phase_kernel(dev, etcd_queue=True)
     final, launches = phase_main_path(dev)
     phase_parity(final, os.path.join(HERE, "madsim_tpu_torch", "data", "flagship_summary.json"))
+    del final
     phase_replay(dev)
     mega = phase_megasweep(dev, int32_ops_per_s=int32_rate)
     phase_ab()
-    phase_spec_as_data(dev)
+    grid = phase_spec_as_data(dev)
+    checked = phase_checked_sweep(dev)
+    launches += grid["launches"] + checked["launches"]
     profiled = profiled_kernels_ms([("pop_min_kernel", k["launch"], 50),
                                     ("megasweep_kernel", mega["launch"], 5)])
     log(f"profiled kernel durations (one torch.profiler session): {json.dumps(profiled)} ms")
 
     b_ms, b_by = bound_ms(NUM_SEEDS, CAPACITY, int32_rate)
+    b48_ms, b48_by = bound_ms(NUM_SEEDS, k48["capacity"], int32_rate)
+    log(f"pop_min at Q={k48['capacity']}: kernel {k48['ms']:.6f} ms vs bound {b48_ms:.6f} ms "
+        f"({b48_by}), {b48_ms / k48['ms']:.3f} of the bound")
     kernels = [{
         "name": "pop_min",
         "route": "cuda",
@@ -688,6 +904,10 @@ def main() -> int:
         "bound_by": b_by,
         "library_ms": None,
         "profiled_ms": profiled["pop_min_kernel"],
+        "ms_q48": k48["ms"],
+        "plain_ms_q48": k48["plain_ms"],
+        "bound_ms_q48": b48_ms,
+        "max_abs_err_q48": k48["max_abs_err"],
     }, {
         "name": "megasweep",
         "route": "cuda",

@@ -6,22 +6,33 @@ This package imports ``torch`` and numpy only — never ``jax`` and nothing
 of ``madsim_tpu``.
 
 Layout mirrors the reference: ``engine/`` (rng, ops, queue, core, net,
-faults, the pop-min CUDA kernel), ``models/`` (raft), ``oracle/`` (the
-history code constants raft records with).
+faults, checkpoint, the pop-min and megasweep CUDA kernels), ``models/``
+(raft, etcd), ``oracle/`` (the history decoder, the sequential specs, the
+WGL checker and the device screens behind ``checked_sweep``).
 
 Every entry point takes ``device=None``; ``None`` means CUDA and raises
 when no GPU is present — it never falls back to the CPU. Pass
 ``device="cpu"`` explicitly to run the plain torch path on the host.
+
+``torch`` is imported where a device is resolved, not by importing the
+package: the checker's pool workers (``oracle/check.py``) start as fresh
+interpreters that import ``madsim_tpu_torch.oracle.check``, and they stay
+numpy-only.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``None`` means ``cuda``, which
     must be available (no silent CPU fallback)."""
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -324,24 +324,72 @@ def _slice_params(params, lo: int, hi: int):
     return tree.map(lambda a: a[lo:hi], params)
 
 
-def run_in_chunks(run_chunk, seeds, chunk_size: int, params=None) -> EngineState:
-    """Run ``run_chunk(seed_chunk)`` over sequential ``chunk_size`` slices
-    (the last may be shorter) and concatenate the final states. With
-    per-lane ``params``, ``run_chunk(seed_chunk, param_chunk)`` receives
-    the matching slice."""
+def _pad_seeds(seeds: torch.Tensor, pad: int) -> torch.Tensor:
+    """Append ``pad`` synthetic continuation seeds (max real seed + 1 +
+    i); their lanes are trimmed by ``_concat_finals`` or masked by a
+    ``limit=`` summary."""
+    filler = seeds.max() + 1 + torch.arange(pad, dtype=torch.int64, device=seeds.device)
+    return torch.cat([seeds, filler])
+
+
+def _pad_params(params, pad: int):
+    """Edge-replicate per-lane params (numpy or tensors) for ``pad``
+    synthetic lanes: any valid params do, and the last lane's are there."""
+
+    def edge(a):
+        if isinstance(a, torch.Tensor):
+            return torch.cat([a, a[-1:].expand((pad,) + tuple(a.shape[1:]))])
+        a = np.asarray(a)
+        return np.concatenate([a, np.broadcast_to(a[-1:], (pad,) + a.shape[1:])])
+
+    return tree.map(edge, params)
+
+
+def _concat_finals(total: int, *finals):
+    """Concatenate chunk finals along the seed axis and trim the padded
+    lanes: the first ``total`` lanes."""
+    return tree.map(lambda *ls: torch.cat(ls, dim=0)[:total], *finals)
+
+
+def chunk_pad(n: int, k: int, chunk_size: int, multiple: int = 1) -> int:
+    """Synthetic lanes a chunk of ``k`` real seeds of an ``n``-seed sweep
+    is padded with: a ragged final chunk to the full ``chunk_size``, a
+    batch smaller than one chunk only to the next ``multiple``."""
+    return chunk_size - k if n > chunk_size else -k % multiple
+
+
+def run_padded(run_chunk, seeds: torch.Tensor, lo: int, chunk_size: int, pad: int, params):
+    """``run_chunk`` over the chunk of ``seeds`` (and per-lane ``params``)
+    at ``lo``, padded by ``pad`` synthetic lanes."""
+    chunk = seeds[lo : lo + chunk_size]
+    if pad:
+        chunk = _pad_seeds(chunk, pad)
+    if params is None:
+        return run_chunk(chunk)
+    pchunk = _slice_params(params, lo, lo + chunk_size)
+    if pad:
+        pchunk = _pad_params(pchunk, pad)
+    return run_chunk(chunk, pchunk)
+
+
+def run_in_chunks(run_chunk, seeds, chunk_size: int, multiple: int = 1, params=None):
+    """Run ``run_chunk(seed_chunk)`` over sequential ``chunk_size`` slices,
+    padded as ``chunk_pad`` says, and concatenate the final states with
+    the padded lanes trimmed off. With per-lane ``params``,
+    ``run_chunk(seed_chunk, param_chunk)`` receives the matching slice,
+    edge-padded like the seeds."""
     seeds = _seed_tensor(seeds, "cpu")
-    if seeds.shape[0] == 0:
+    n = int(seeds.shape[0])
+    if n == 0:
         raise ValueError("seed batch is empty")
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
-    finals = []
-    for lo in range(0, int(seeds.shape[0]), chunk_size):
-        chunk = seeds[lo : lo + chunk_size]
-        if params is None:
-            finals.append(run_chunk(chunk))
-        else:
-            finals.append(run_chunk(chunk, _slice_params(params, lo, lo + chunk_size)))
-    return tree.map(lambda *ls: torch.cat(ls, dim=0), *finals)
+    finals = [
+        run_padded(run_chunk, seeds, lo, chunk_size,
+                   chunk_pad(n, min(chunk_size, n - lo), chunk_size, multiple), params)
+        for lo in range(0, n, chunk_size)
+    ]
+    return _concat_finals(n, *finals)
 
 
 def _one_lane(params):

@@ -13,7 +13,9 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..engine import tree
 from ..engine.core import Emits
+from ..engine.ops import expand, where
 
 # sentinel for an unused extra slot
 DISABLED = None
@@ -207,3 +209,32 @@ def pack_emits(payload_slots: int, bcast, *extras: ExtraSlot) -> Emits:
         pays=torch.cat([pays, ex.pays], dim=1),
         enables=torch.cat([enables, ex.enables], dim=1),
     )
+
+
+def switch(kind, branches, w, *args):
+    """The batched ``lax.switch`` of a handler: every branch
+    ``branch(w, *args) -> (w', Emits)`` runs for the whole batch and each
+    lane keeps branch ``kind``'s result (``kind`` clamped into range, as
+    ``lax.switch`` clamps it)."""
+    results = [br(w, *args) for br in branches]
+    kind = torch.clamp(kind, 0, len(branches) - 1)
+    return (
+        _select(kind, w, [r[0] for r in results]),
+        _select(kind, results[0][1], [r[1] for r in results]),
+    )
+
+
+def _select(kind, base, results):
+    """Per lane, ``results[kind]``. A leaf a branch did not touch is
+    ``base``'s own tensor and needs no select for that branch."""
+    masks = [kind == k for k in range(len(results))]
+    per_branch = [tree.leaves(r) for r in results]
+    out = []
+    for i, b in enumerate(tree.leaves(base)):
+        acc = b
+        for k, leaves in enumerate(per_branch):
+            leaf = leaves[i]
+            if leaf is not b:
+                acc = where(expand(masks[k], leaf.ndim), leaf, acc)
+        out.append(acc)
+    return tree.unflatten(base, out)

@@ -24,9 +24,8 @@ import torch
 
 from ..engine import faults as efaults
 from ..engine import net as enet
-from ..engine import tree
 from ..engine.core import Emits, EngineConfig, Workload
-from ..engine.ops import expand, get1, get2, geti, set1, set2, where
+from ..engine.ops import get1, get2, geti, set1, set2
 from ..engine.rng import bits, bounded, fold_in, prob_to_q32
 from ..oracle.history import OP_ELECT, PH_INVOKE
 from . import _common
@@ -648,30 +647,10 @@ def _record(cfg: RaftConfig, wb: RaftState, wa: RaftState, now, kind, pay):
 _BRANCHES = (_on_election_timer, _on_heartbeat_timer, _on_msg, _on_fault, _on_cmd)
 
 
-def _select(kind, base, results):
-    """Per lane, ``results[kind]`` — the batched ``lax.switch``. A leaf a
-    branch did not touch is ``base``'s own tensor, and needs no select
-    for that branch."""
-    masks = [kind == k for k in range(len(results))]
-    base_leaves = tree.leaves(base)
-    per_branch = [tree.leaves(r) for r in results]
-    out = []
-    for i, b in enumerate(base_leaves):
-        acc = b
-        for k, leaves in enumerate(per_branch):
-            leaf = leaves[i]
-            if leaf is not b:
-                acc = where(expand(masks[k], leaf.ndim), leaf, acc)
-        out.append(acc)
-    return tree.unflatten(base, out)
-
-
 def _handle(cfg: RaftConfig, w: RaftState, now, kind, pay, rand):
-    results = [br(cfg, w, now, pay, rand) for br in _BRANCHES]
-    # lax.switch clamps the index into range
-    kind = torch.clamp(kind, 0, len(_BRANCHES) - 1)
-    w2 = _select(kind, w, [r[0] for r in results])
-    emits = _select(kind, results[0][1], [r[1] for r in results])
+    w2, emits = _common.switch(
+        kind, [partial(br, cfg) for br in _BRANCHES], w, now, pay, rand
+    )
     # durability plane: fsync-on-mutate — after every event each node's
     # synced shadow catches up to the live durable state unless a
     # slow-disk window holds its fsync
@@ -761,6 +740,14 @@ def _init(cfg: RaftConfig, key: torch.Tensor, params=None):
             dim=1,
         ),
     )
+
+
+def history_spec():
+    """The sequential spec this model's histories check against
+    (``oracle.specs.ElectionSpec``), also the key of its device screen."""
+    from ..oracle.specs import ElectionSpec
+
+    return ElectionSpec()
 
 
 @_common.memoized_workload(RaftConfig)

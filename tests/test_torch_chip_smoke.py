@@ -115,3 +115,28 @@ def test_spec_as_data_phase_on_the_plain_path():
     out = chip_smoke.phase_spec_as_data(torch.device("cpu"), lanes=12, parity_lanes=4)
     assert out["launches"] == 0 and out["steps"] > 0
     assert min(out["fired"]) > 0
+
+
+def test_checked_sweep_phase_on_the_plain_path():
+    """Phase 9 on the CPU at the rehearsal sizes of the golden files: the
+    clean checked sweep (two chunks) and the stale-read sweeps through
+    both decode routes equal the JAX-made goldens, the parity, screen and
+    canonical-decode checks and the snapshot resume pass, and no kernel
+    launches on the CPU."""
+    out = chip_smoke.phase_checked_sweep(
+        torch.device("cpu"), clean=chip_smoke.CLEAN_RUNS[1], stale=chip_smoke.STALE_RUNS[1],
+        workers=2, parity_seeds=8, ckpt=(16, 20),
+    )
+    assert out["launches"] == 0 and out["steps"] > 0
+    assert out["report"]["seeds"] == chip_smoke.CLEAN_RUNS[1][0]
+    assert out["stale"]["hist_violations"] > 0
+
+
+def test_pop_min_bound_at_the_etcd_queue_width():
+    """Phase 9's queue is 48 slots: 16,384 x 48 int64 deadlines read, the
+    tie words read and slot and found written, over HBM bandwidth."""
+    ms, by = chip_smoke.bound_ms(16_384, 48)
+    assert by == "bytes"
+    assert ms == pytest.approx((16_384 * 48 * 8 + 16_384 * 9) / 3.35e12 * 1e3)
+    wl, ecfg = chip_smoke.etcd_path()
+    assert ecfg.queue_capacity == 48 and wl.hist_slots == chip_smoke.ETCD_HIST_SLOTS

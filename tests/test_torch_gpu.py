@@ -1,5 +1,6 @@
 """The pop-min and megasweep CUDA kernels against their plain versions,
-on the card.
+and the checked sweep's torch programs (screens, canonical decode)
+against their CPU runs, on the card.
 
 Marked ``gpu``: the kernels have no CPU or interpret mode, so these skip
 where no CUDA card is present. This file imports no JAX (the card's
@@ -26,9 +27,10 @@ def _time_plane(rs, s, q, free_frac, time_hi):
 @pytest.mark.parametrize(
     "free_frac,time_hi,capacity,offset",
     [(0.3, 4, 64, 0), (1.0, 4, 64, 0), (0.0, 10**9, 64, 0), (0.5, 3, 58, 0),
-     (0.2, 2, 200, 0), (0.4, 3, 37, 0), (1.0, 4, 37, 0), (0.3, 4, 64, 1)],
+     (0.2, 2, 200, 0), (0.4, 3, 37, 0), (1.0, 4, 37, 0), (0.3, 4, 64, 1),
+     (0.3, 4, 48, 0), (1.0, 4, 48, 0), (0.0, 3, 48, 0), (0.3, 4, 48, 1)],
     ids=["ties", "empty", "full", "q58", "q200", "q37_odd", "q37_odd_empty",
-         "q64_unaligned"],
+         "q64_unaligned", "q48_ties", "q48_empty", "q48_full_ties", "q48_unaligned"],
 )
 def test_kernel_matches_plain_version_on_the_card(free_frac, time_hi, capacity, offset):
     """Q = 64 and 58 take the kernel's 16-byte loads; an odd Q, and a
@@ -138,3 +140,64 @@ def test_megasweep_wrapper_refuses_what_the_kernel_does_not_take():
                             device="cuda")
     with pytest.raises(ValueError):
         megakernel.run_megasweep(other, 4, tile=8)
+
+
+@pytest.mark.gpu
+def test_pop_min_at_the_etcd_width_on_real_queues():
+    """Phase 9's queues (48 slots) after 100 etcd events: kernel == plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU or interpret mode)")
+    for name, time, tie in chip_smoke.kernel_cases(torch.device("cuda"), 4096, etcd_queue=True):
+        assert time.shape[1] == 48
+        slot, found = cuda_queue.pop_min_decision(time, tie)
+        ref_slot, ref_found = cuda_queue.pop_min_decision_ref(time, tie)
+        assert torch.equal(slot, ref_slot) and torch.equal(found, ref_found), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stale", [False, True], ids=["clean", "stale"])
+def test_screen_and_canon_sweep_on_the_card_equal_the_cpu(stale):
+    """``screen_sweep`` and ``canon_sweep`` of a finished etcd chunk on the
+    card equal the same functions on a CPU copy (dtypes included)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from madsim_tpu_torch.engine import core, tree
+    from madsim_tpu_torch.models import etcd
+    from madsim_tpu_torch.oracle import history, screen
+
+    wl, ecfg = chip_smoke.etcd_path(stale)
+    final = core.run_sweep(wl, ecfg, torch.arange(2048), device="cuda")
+    copy = tree.map(lambda a: a.cpu(), final)
+    spec = etcd.history_spec()
+    got, want = screen.screen_sweep(final, spec, block=512), screen.screen_sweep(copy, spec)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert bool(want.any()) == stale
+    for a, b in zip(history.canon_sweep(final, block=512), history.canon_sweep(copy)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_host_phase_gathers_sparse_suspects_on_the_card():
+    """A few suspect lanes (under a quarter of the chunk) are gathered on
+    the card before the copy: both decode routes give the CPU's report."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from madsim_tpu_torch.engine import core, tree
+    from madsim_tpu_torch.models import etcd
+    from madsim_tpu_torch.oracle import history, screen
+
+    wl, ecfg = chip_smoke.etcd_path(stale=True)
+    final = core.run_sweep(wl, ecfg, torch.arange(256), device="cuda")
+    copy = tree.map(lambda a: a.cpu(), final)
+    lanes = [3, 17, 40, 41, 200]
+    assert [tuple(h) for h in history.decode_lanes(final, lanes)] == [
+        tuple(h) for h in history.decode_lanes(copy, lanes)]
+    suspect = np.zeros(256, bool)
+    suspect[lanes] = True
+    spec = etcd.history_spec()
+    reports = [
+        screen.history_host_work(spec, device_decode=decode)(
+            state, lo=0, n=256, seeds=None, suspect=suspect, summary={})
+        for state in (final, copy) for decode in (True, False)
+    ]
+    assert all(r == reports[0] for r in reports) and reports[0]["hist_suspects"] == 5

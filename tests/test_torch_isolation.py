@@ -28,9 +28,15 @@ MODULES = [
     "madsim_tpu_torch.engine.faults",
     "madsim_tpu_torch.engine.state_io",
     "madsim_tpu_torch.engine.tree",
+    "madsim_tpu_torch.engine.checkpoint",
+    "madsim_tpu_torch.oracle",
     "madsim_tpu_torch.oracle.history",
+    "madsim_tpu_torch.oracle.specs",
+    "madsim_tpu_torch.oracle.check",
+    "madsim_tpu_torch.oracle.screen",
     "madsim_tpu_torch.models._common",
     "madsim_tpu_torch.models.raft",
+    "madsim_tpu_torch.models.etcd",
     "madsim_tpu_torch.bench_megakernel",
 ]
 
@@ -51,6 +57,32 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         " or m == 'madsim_tpu' or m.startswith('madsim_tpu.'))\n"
         "print(bad)\n"
         "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "madsim_tpu_torch",
+    "madsim_tpu_torch.oracle",
+    "madsim_tpu_torch.oracle.check",
+    "madsim_tpu_torch.oracle.history",
+    "madsim_tpu_torch.oracle.specs",
+])
+def test_the_checkers_modules_import_no_torch(module):
+    """The WGL checker's pool workers start as fresh interpreters that
+    import ``madsim_tpu_torch.oracle.check``: that import (the package's
+    ``__init__`` included) must leave torch out, so a worker stays
+    numpy-only."""
+    code = (
+        f"import sys\nimport {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))\n"
+        "assert not bad, bad[:5]\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -86,7 +118,13 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
 
     cfg = raft.RaftConfig(num_nodes=3, crashes=1)
     wl, ecfg = raft.workload(cfg), raft.engine_config(cfg, max_steps=10)
+    from madsim_tpu_torch.engine import checkpoint
+    from madsim_tpu_torch.oracle import screen
+
+    spec = raft.history_spec()
     for call in (
+        lambda: checkpoint.run_sweep_pipelined(wl, ecfg, np.arange(4), raft.sweep_summary),
+        lambda: screen.checked_sweep(wl, ecfg, np.arange(4), spec, raft.sweep_summary),
         lambda: core.run_sweep(wl, ecfg, np.arange(4)),
         lambda: core.init_sweep(wl, ecfg, np.arange(4)),
         lambda: core.run_sweep_chunked(wl, ecfg, np.arange(4), chunk_size=2),
