@@ -56,13 +56,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launches equal to the ``step_batch`` calls, the report equal to the
    JAX-made golden ``madsim_tpu_torch/data/etcd_checked_clean.json``,
    its wall time and seeds/s beside its unchecked twin's
-   (``run_sweep_pipelined`` with no screen and no host work) and the
-   peak device memory; (c) lanes 0-63 of its first chunk equal the CPU
+   (``run_sweep_pipelined`` with no screen and no host work), the
+   seconds of its chunk sweeps and of its host checking (the driver runs
+   them one after the other) and the peak device memory; (c) lanes 0-63 of its first chunk equal the CPU
    port leaf for leaf, and ``screen_sweep`` and ``canon_sweep`` of that
    chunk equal the same functions on the CPU on all 16,384 lanes; (b)
    ``bug_stale_read`` over 2,048 seeds in chunks of 1,024 with
-   ``device_decode`` on and off: history violations found, both reports
-   byte-equal to each other and to ``etcd_checked_stale.json``; (d) a
+   ``device_decode`` on and off, each timed as (a) is: history violations
+   found, both reports byte-equal to each other and to
+   ``etcd_checked_stale.json``; (d) a
    1,024-seed state saved mid-run on the card with ``save_sweep(...,
    inflight=...)`` resumed through ``run_sweep_pipelined(resume_from=...)``
    on the CPU port and on the card to equal totals.
@@ -76,6 +78,7 @@ phases 3, 8 and 9, its Q = 48 times beside the Q = 64 ones); the last is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -697,6 +700,55 @@ def _same_report(got: dict, want: dict, what: str) -> None:
                          f"{json.dumps(want, sort_keys=True)}")
 
 
+class PhaseClock:
+    """Seconds of a checked sweep's two phases, summed over its chunks:
+    ``sweep_seconds`` of the chunks' sweeps (``core.run_sweep`` while
+    ``timing`` patches it; each returns when the card has finished) and,
+    as a duck-typed ``telemetry`` handle, the host work's
+    ``oracle_check_seconds`` (decode, dedup, WGL). It records no report
+    byte."""
+
+    tracer = None
+
+    def __init__(self):
+        self.seconds: dict = {}
+
+    @contextlib.contextmanager
+    def timing(self, keep=None):
+        """Patch ``core.run_sweep`` to time each chunk's sweep, and keep
+        the first chunk's final state in the list ``keep``."""
+        from madsim_tpu_torch.engine import core
+
+        run_sweep = core.run_sweep
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = run_sweep(*args, **kwargs)
+            self.observe("sweep_seconds", time.perf_counter() - t0)
+            if keep is not None and not keep:
+                keep.append(out)
+            return out
+
+        core.run_sweep = timed
+        try:
+            yield self
+        finally:
+            core.run_sweep = run_sweep
+
+    def observe(self, name, value, help=None):
+        self.seconds[name] = self.seconds.get(name, 0.0) + value
+
+    def count(self, *args, **kwargs):
+        pass
+
+    gauge = event = event_mix = count
+
+    def split(self) -> str:
+        sweep_s = self.seconds.get("sweep_seconds", 0.0)
+        host_s = self.seconds.get("oracle_check_seconds", 0.0)
+        return f"chunk sweeps {sweep_s:.6f} s, host checking {host_s:.6f} s"
+
+
 def phase_checked_sweep(dev, clean=CLEAN_RUNS[0], stale=STALE_RUNS[0],
                         workers: int = CHECK_WORKERS, parity_seeds: int = ETCD_PARITY_SEEDS,
                         ckpt=ETCD_CKPT) -> dict:
@@ -727,24 +779,14 @@ def phase_checked_sweep(dev, clean=CLEAN_RUNS[0], stale=STALE_RUNS[0],
     n, chunk = clean
     seeds = np.arange(n, dtype=np.int64)
     firsts = []
-    run_sweep = core.run_sweep
-
-    def keep_first(*args, **kwargs):
-        out = run_sweep(*args, **kwargs)
-        if not firsts:
-            firsts.append(out)
-        return out
-
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    core.run_sweep = keep_first
-    try:
+    clock = PhaseClock()
+    with clock.timing(keep=firsts):
         report, calls, got, wall = main_path_run(dev, lambda: screen.checked_sweep(
             wl, ecfg, seeds, spec, etcd.sweep_summary, chunk_size=chunk,
-            workers=workers, device=dev))
-    finally:
-        core.run_sweep = run_sweep
+            workers=workers, device=dev, telemetry=clock))
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     launches, steps = launches + got, steps + calls
     log("checked etcd sweep: " + json.dumps(report, sort_keys=True))
@@ -755,12 +797,12 @@ def phase_checked_sweep(dev, clean=CLEAN_RUNS[0], stale=STALE_RUNS[0],
     log(f"checked sweep: {n} seeds in {n // chunk} chunks of {chunk}, {calls} step_batch "
         f"calls, {got} pop_min launches, wall {wall:.6f} s, {n / wall:.3f} seeds/s; "
         f"unchecked twin {u_wall:.6f} s, {n / u_wall:.3f} seeds/s; checked/unchecked "
-        f"{wall / u_wall:.6f}; {report['hist_suspects']} suspects, "
+        f"{wall / u_wall:.6f}; {clock.split()}; {report['hist_suspects']} suspects, "
         f"{report['hist_violations']} history violations; peak device memory {peak} B; "
         f"loop state {core.state_bytes_per_seed(wl, ecfg)} B/seed, queue "
         f"{ecfg.queue_capacity}")
     out = {"seeds": n, "chunk": chunk, "wall_s": wall, "unchecked_wall_s": u_wall,
-           "peak_bytes": peak, "report": report}
+           "peak_bytes": peak, "report": report, "phases_s": clock.seconds}
 
     # (c) cross-device parity on the first chunk
     first = firsts[0]
@@ -786,11 +828,17 @@ def phase_checked_sweep(dev, clean=CLEAN_RUNS[0], stale=STALE_RUNS[0],
     n, chunk = stale
     reports = []
     for decode in (True, False):
-        rep, calls, got, _ = main_path_run(dev, lambda: screen.checked_sweep(
-            wl_s, ecfg_s, np.arange(n, dtype=np.int64), spec, etcd.sweep_summary,
-            chunk_size=chunk, workers=workers, device_decode=decode, device=dev))
+        clock = PhaseClock()
+        with clock.timing():
+            rep, calls, got, wall = main_path_run(dev, lambda: screen.checked_sweep(
+                wl_s, ecfg_s, np.arange(n, dtype=np.int64), spec, etcd.sweep_summary,
+                chunk_size=chunk, workers=workers, device_decode=decode, device=dev,
+                telemetry=clock))
         launches, steps = launches + got, steps + calls
         reports.append(rep)
+        log(f"stale-read, {'device' if decode else 'host'} decode: wall {wall:.6f} s, "
+            f"{n / wall:.3f} seeds/s; {clock.split()}; {rep['hist_suspects']} suspects, "
+            f"{rep['hist_unique']} unique histories checked")
     _same_report(reports[0], reports[1], "stale-read report, device vs host decode")
     _same_report(reports[0], goldens(True)[run_key(n, chunk)], "stale-read report vs golden")
     if reports[0]["hist_violations"] <= 0:

@@ -251,8 +251,7 @@ def run_sweep_chunked_resumable(
 
     Each file records its seed range, a sha256 of the chunk's seeds and
     the workload's fingerprint; a file of another sweep raises. A ragged
-    final chunk is padded to ``chunk_size`` and its padded lanes masked
-    by a limit-aware ``summarize`` (or trimmed). ``run_chunk(seed_chunk)``
+    final chunk runs as it is, unpadded. ``run_chunk(seed_chunk)``
     overrides the per-chunk sweep; ``device=None`` means CUDA."""
     import os
     import time as _time
@@ -281,14 +280,7 @@ def run_sweep_chunked_resumable(
         else:
             if telemetry is not None:
                 t_chunk = _time.perf_counter()
-            pad = chunk_size - k
-            final = core.run_padded(run_chunk, seeds, lo, chunk_size, pad, params)
-            if pad and getattr(summarize, "supports_limit", False):
-                summary = summarize(final, limit=k)
-            else:
-                if pad:
-                    final = core._concat_finals(k, final)
-                summary = summarize(final)
+            summary = summarize(core.run_padded(run_chunk, seeds, lo, chunk_size, 0, params))
             _write_chunk_summary(path, first, last, seeds_sha, fp, summary)
             if telemetry is not None:
                 dt = _time.perf_counter() - t_chunk
@@ -325,18 +317,22 @@ def run_sweep_pipelined(
     device=None,
 ) -> dict:
     """Chunked sweep with the host phase of chunk N run after the device
-    phase of chunk N+1 was issued — the reference's pipeline, chunk for
-    chunk.
+    phase of chunk N+1 — the reference's order of work, chunk for chunk,
+    but not its overlap: ``core.drive`` waits for the card every 64
+    steps, so chunk N+1 has finished on the card before chunk N's host
+    phase starts, and the two phases add up. (The reference's host phase
+    runs while XLA's asynchronous dispatch keeps the device busy.)
 
     Per chunk: the sweep (``run_chunk``) and ``screen(final) -> bool[S]``
-    are issued; then the previous chunk's host phase runs —
+    run; then the previous chunk's host phase runs —
     ``host_work(final, lo=, n=, seeds=, suspect=, summary=)`` gets its
     finished state (padded lanes trimmed), its suspect mask on the host
     and its summary, and the dict it returns joins that summary; then
-    this chunk's ``summarize`` reads its result. A ragged final chunk is
-    padded to ``chunk_size`` (a batch smaller than one chunk to the next
-    ``pad_multiple``); a limit-aware ``summarize`` masks the padded
-    lanes, and ``host_work`` never sees them.
+    this chunk's ``summarize`` reads its result. Every chunk is padded
+    to the next ``pad_multiple`` of lanes (a ragged final chunk is not
+    padded to ``chunk_size``: no compiled program is reused here); a
+    limit-aware ``summarize`` masks the padded lanes, and ``host_work``
+    never sees them.
 
     ``ckpt_dir`` writes each chunk's final summary (after its host
     phase) atomically and skips chunks already written, as
@@ -489,7 +485,7 @@ def run_sweep_pipelined(
             t_disp = _time.perf_counter()
         if telemetry is not None:
             d0 = tracer._now_us() if tracer is not None else 0.0
-        pad = core.chunk_pad(n, k, chunk_size, pad_multiple)
+        pad = -k % pad_multiple
         if lo == resume_lo:
             state, inflight = resume_from
             if telemetry is not None:

@@ -351,13 +351,6 @@ def _concat_finals(total: int, *finals):
     return tree.map(lambda *ls: torch.cat(ls, dim=0)[:total], *finals)
 
 
-def chunk_pad(n: int, k: int, chunk_size: int, multiple: int = 1) -> int:
-    """Synthetic lanes a chunk of ``k`` real seeds of an ``n``-seed sweep
-    is padded with: a ragged final chunk to the full ``chunk_size``, a
-    batch smaller than one chunk only to the next ``multiple``."""
-    return chunk_size - k if n > chunk_size else -k % multiple
-
-
 def run_padded(run_chunk, seeds: torch.Tensor, lo: int, chunk_size: int, pad: int, params):
     """``run_chunk`` over the chunk of ``seeds`` (and per-lane ``params``)
     at ``lo``, padded by ``pad`` synthetic lanes."""
@@ -374,10 +367,14 @@ def run_padded(run_chunk, seeds: torch.Tensor, lo: int, chunk_size: int, pad: in
 
 def run_in_chunks(run_chunk, seeds, chunk_size: int, multiple: int = 1, params=None):
     """Run ``run_chunk(seed_chunk)`` over sequential ``chunk_size`` slices,
-    padded as ``chunk_pad`` says, and concatenate the final states with
-    the padded lanes trimmed off. With per-lane ``params``,
-    ``run_chunk(seed_chunk, param_chunk)`` receives the matching slice,
-    edge-padded like the seeds."""
+    each padded to the next ``multiple`` of lanes, and concatenate the
+    final states with the padded lanes trimmed off. With per-lane
+    ``params``, ``run_chunk(seed_chunk, param_chunk)`` receives the
+    matching slice, edge-padded like the seeds.
+
+    A ragged final chunk is not padded to the full ``chunk_size``: the
+    reference does so only to reuse one compiled XLA program, and an
+    eager step has none to reuse."""
     seeds = _seed_tensor(seeds, "cpu")
     n = int(seeds.shape[0])
     if n == 0:
@@ -386,7 +383,7 @@ def run_in_chunks(run_chunk, seeds, chunk_size: int, multiple: int = 1, params=N
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
     finals = [
         run_padded(run_chunk, seeds, lo, chunk_size,
-                   chunk_pad(n, min(chunk_size, n - lo), chunk_size, multiple), params)
+                   -min(chunk_size, n - lo) % multiple, params)
         for lo in range(0, n, chunk_size)
     ]
     return _concat_finals(n, *finals)

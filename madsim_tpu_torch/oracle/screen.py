@@ -47,6 +47,7 @@ from .history import (
     _block_widths,
     host,
 )
+from .. import resolve_device
 from .specs import ABSENT
 
 # int64 sentinels: "no such time" below/above any virtual timestamp
@@ -292,14 +293,21 @@ def screen_for(spec) -> Optional[Callable]:
     return _SCREENS.get(getattr(spec, "name", None))
 
 
-def screen_history(rec, t, n, spec) -> bool:
-    """Screen ONE seed's raw history rows (tests and replay tooling)."""
+def screen_history(rec, t, n, spec, device=None) -> bool:
+    """Screen ONE seed's raw history rows (tests and replay tooling).
+
+    Rows given as a tensor are screened on their own device; numpy rows
+    on ``device`` (None means CUDA)."""
     fn = screen_for(spec)
     if fn is None:
         raise ValueError(f"no device screen for spec {spec.name!r}")
-    rec = torch.as_tensor(np.asarray(host(rec), dtype=np.int32))[None]
-    t = torch.as_tensor(np.asarray(host(t), dtype=np.int64))[None]
-    return bool(fn(rec, t, torch.tensor([int(n)], dtype=torch.int32))[0])
+    if device is None and isinstance(rec, torch.Tensor):
+        dev = rec.device
+    else:
+        dev = resolve_device(device)
+    rec = torch.as_tensor(rec, device=dev).to(torch.int32)[None]
+    t = torch.as_tensor(t, device=dev).to(torch.int64)[None]
+    return bool(fn(rec, t, torch.tensor([int(n)], dtype=torch.int32, device=dev))[0])
 
 
 def screen_sweep(final, spec, block: int = 1024, mesh=None) -> torch.Tensor:
@@ -586,7 +594,8 @@ def checked_sweep(
     ``device_decode`` always. ``chunk_size=None`` picks one with
     ``core.pick_chunk_size``. ``device=None`` means CUDA.
 
-    ``mesh=`` and ``driver="stream"`` are not ported yet and raise
+    ``mesh=``, ``chunk_per_device=`` (the mesh route's) and
+    ``driver="stream"`` are not ported yet and raise
     ``NotImplementedError``: they wait for ``parallel/mesh.py`` and
     ``engine/stream.py`` (ROADMAP queue A items 10 and 9)."""
     from ..engine import core
@@ -599,10 +608,10 @@ def checked_sweep(
             "checked_sweep(driver='stream') waits for the port of "
             "engine/stream.py (ROADMAP queue A item 9)"
         )
-    if mesh is not None:
+    if mesh is not None or chunk_per_device is not None:
         raise NotImplementedError(
-            "checked_sweep(mesh=...) waits for the port of parallel/mesh.py "
-            "(ROADMAP queue A item 10)"
+            "checked_sweep(mesh=..., chunk_per_device=...) waits for the port "
+            "of parallel/mesh.py (ROADMAP queue A item 10)"
         )
     screen_fn = None
     if screen:

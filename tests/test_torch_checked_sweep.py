@@ -115,6 +115,8 @@ def test_routes_not_ported_yet_refuse():
     args = (petcd.workload(pcfg), pecfg, SEEDS[:4], petcd.history_spec(), petcd.sweep_summary)
     with pytest.raises(NotImplementedError, match="queue A item 10"):
         pscreen.checked_sweep(*args, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 10"):
+        pscreen.checked_sweep(*args, chunk_per_device=2, device="cpu")
     with pytest.raises(NotImplementedError, match="queue A item 9"):
         pscreen.checked_sweep(*args, driver="stream", device="cpu")
     with pytest.raises(ValueError, match="unknown driver"):

@@ -129,6 +129,7 @@ def test_checked_sweep_phase_on_the_plain_path():
     )
     assert out["launches"] == 0 and out["steps"] > 0
     assert out["report"]["seeds"] == chip_smoke.CLEAN_RUNS[1][0]
+    assert out["phases_s"]["sweep_seconds"] > 0 and "oracle_check_seconds" in out["phases_s"]
     assert out["stale"]["hist_violations"] > 0
 
 

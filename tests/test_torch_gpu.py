@@ -177,6 +177,40 @@ def test_screen_and_canon_sweep_on_the_card_equal_the_cpu(stale):
 
 
 @pytest.mark.gpu
+def test_screen_history_runs_on_the_card(monkeypatch):
+    """One lane's rows, as tensors on the card or as numpy with the
+    default device, are screened on the card, to the CPU's verdict."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from madsim_tpu_torch.engine import core
+    from madsim_tpu_torch.models import etcd
+    from madsim_tpu_torch.oracle import screen
+
+    wl, ecfg = chip_smoke.etcd_path(stale=True)
+    final = core.run_sweep(wl, ecfg, torch.arange(64), device="cuda")
+    spec = etcd.history_spec()
+    seen = []
+    kv = screen._SCREENS["kv"]
+
+    def spy(rec, t, n):
+        seen.append((rec.device.type, t.device.type, n.device.type))
+        return kv(rec, t, n)
+
+    verdicts = set()
+    for lane in range(64):
+        rec, t, n = final.hist_rec[lane], final.hist_t[lane], int(final.hist_len[lane])
+        want = screen.screen_history(rec.cpu(), t.cpu(), n, spec)
+        monkeypatch.setitem(screen._SCREENS, "kv", spy)
+        assert screen.screen_history(rec, t, n, spec) == want
+        assert screen.screen_history(rec.cpu().numpy(), t.cpu().numpy(), n, spec) == want
+        monkeypatch.setitem(screen._SCREENS, "kv", kv)
+        verdicts.add(want)
+        assert seen == [("cuda",) * 3] * 2
+        seen.clear()
+    assert True in verdicts
+
+
+@pytest.mark.gpu
 def test_host_phase_gathers_sparse_suspects_on_the_card():
     """A few suspect lanes (under a quarter of the chunk) are gathered on
     the card before the copy: both decode routes give the CPU's report."""

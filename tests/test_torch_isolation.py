@@ -125,6 +125,7 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
     for call in (
         lambda: checkpoint.run_sweep_pipelined(wl, ecfg, np.arange(4), raft.sweep_summary),
         lambda: screen.checked_sweep(wl, ecfg, np.arange(4), spec, raft.sweep_summary),
+        lambda: screen.screen_history(np.zeros((3, 5), np.int32), np.zeros(3, np.int64), 0, spec),
         lambda: core.run_sweep(wl, ecfg, np.arange(4)),
         lambda: core.init_sweep(wl, ecfg, np.arange(4)),
         lambda: core.run_sweep_chunked(wl, ecfg, np.arange(4), chunk_size=2),

@@ -157,7 +157,7 @@ def test_log_offset_contiguity(second_offset, suspect):
     want = _ref(rscreen.log_suspect, rec, t, n)
     assert (_port(pscreen.log_suspect, rec, t, n) == want).all()
     assert bool(want[0]) == suspect
-    assert pscreen.screen_history(rec[0], t[0], n[0], pspecs.LogSpec()) == suspect
+    assert pscreen.screen_history(rec[0], t[0], n[0], pspecs.LogSpec(), device="cpu") == suspect
 
 
 class Planes:
@@ -178,8 +178,32 @@ def test_screen_sweep_in_blocks_with_a_ragged_tail(family, spec):
     one = pscreen.screen_sweep(Planes(rec, t, n, torch.from_numpy), getattr(pspecs, spec)())
     assert (one.numpy() == want).all()  # one block of 1,024 lanes
     for lane in (0, 9, 36):
-        assert pscreen.screen_history(rec[lane], t[lane], n[lane], getattr(pspecs, spec)()) == (
+        assert pscreen.screen_history(rec[lane], t[lane], n[lane], getattr(pspecs, spec)(),
+                                      device="cpu") == (
             rscreen.screen_history(rec[lane], t[lane], n[lane], getattr(rspecs, spec)()))
+
+
+def test_screen_history_runs_where_its_rows_are(monkeypatch):
+    """Tensor rows are screened on their own device; numpy rows on
+    ``device``, whose default is CUDA and raises without a card."""
+    rec, t, n = random_planes(11, 4, 12, "kv")
+    seen = []
+    screen = pscreen._SCREENS["kv"]
+
+    def spy(r, tt, nn):
+        seen.append((r.device, tt.device, nn.device))
+        return screen(r, tt, nn)
+
+    monkeypatch.setitem(pscreen._SCREENS, "kv", spy)
+    for lane in range(4):
+        want = rscreen.screen_history(rec[lane], t[lane], n[lane], rspecs.KVSpec())
+        got = pscreen.screen_history(torch.from_numpy(rec[lane]), torch.from_numpy(t[lane]),
+                                     n[lane], pspecs.KVSpec())
+        assert got == want
+    assert seen == [(torch.device("cpu"),) * 3] * 4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        pscreen.screen_history(rec[0], t[0], n[0], pspecs.KVSpec())
 
 
 def test_zero_width_planes_are_all_clean():
