@@ -67,13 +67,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``etcd_checked_stale.json``; (d) a
    1,024-seed state saved mid-run on the card with ``save_sweep(...,
    inflight=...)`` resumed through ``run_sweep_pipelined(resume_from=...)``
-   on the CPU port and on the card to equal totals.
+   on the CPU port and on the card to equal totals;
+10. kafka (BASELINE.md #4): ``KafkaConfig()`` at its published widths
+    (queue 48) at bench.py's 3 s horizon over 10,240 seeds through
+    ``core.run_sweep(..., device="cuda")``: the summary equal to the
+    JAX-made golden ``kafka_summary.json``, lanes 0-63 equal to the CPU
+    port, and ``run_traced`` of a violating seed of the ack-on-append bug
+    (two crashes) equal to the CPU replay;
+11. S3: ``S3Config()`` at its engine defaults (5 s, queue 48) over 16,384
+    seeds and the ack-before-durable bug over 2,048, both summaries equal
+    to their goldens, the bug caught, lanes 0-63 equal to the CPU port;
+12. the checked kafka sweep (``KafkaConfig(hist_slots=512)``, 2 s, 20,000
+    steps): 10,240 seeds in two chunks of 5,120 and the ack-on-append bug
+    over 2,048 in chunks of 1,024 through ``checked_sweep(...,
+    workers=8)``, both reports equal to their goldens, the first chunk's
+    log screen equal to the CPU's on every lane;
+13. the stream (bench.py's streaming etcd config: stale-read bug,
+    gray-failure faults, 3 s, 2,000 steps) over 16,384 seeds, pool and
+    chunk 8,192: (a) ``stream_sweep`` twice against
+    ``run_sweep_pipelined`` and the golden totals ``etcd_stream.json``,
+    the second call inside ``compiles.count_compiles()`` counting 0 (in
+    eager torch a kernel is built and loaded once per process, so this
+    shows only that nothing was rebuilt);
+    (b) ``checked_sweep`` with ``driver="stream"`` and ``"chunked"``,
+    byte-equal reports equal to the golden; (c) a stream stopped after 2
+    rounds and resumed on the card to the uninterrupted totals.
 
-After the phases, both kernels' ``torch.profiler`` durations, from one
-profiler session, are printed beside their CUDA-graph times. The line
-before the last is ``{"kernels": [...]}`` (pop_min's launches summed over
-phases 3, 8 and 9, its Q = 48 times beside the Q = 64 ones); the last is
-``{"ok": true, "device": {...}}``.
+Phases 10-13 print their wall seconds, seeds/s, events/s and peak device
+memory, and each zeroes pop_min's launch count before every driven run
+and checks it equals the ``step_batch`` calls. Every phase's seconds are
+printed. After the phases, both kernels' ``torch.profiler`` durations,
+from one profiler session, are printed beside their CUDA-graph times.
+The line before the last is ``{"kernels": [...]}`` (pop_min's launches
+summed over phases 3 and 8-13, its Q = 48 times beside the Q = 64 ones);
+the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -153,6 +180,36 @@ CHECK_WORKERS = 8
 ETCD_PARITY_SEEDS = 64
 # (seeds, steps on the card before the snapshot) of the cross-device resume
 ETCD_CKPT = (1_024, 64)
+# phase 10, kafka (BASELINE.md #4, bench.py's bench_secondary_models):
+# KafkaConfig() at its published widths, queue 48, bench.py's 3 s
+# SIM_SECONDS; seeds of the card's run and of the CPU rehearsal, and the
+# replayed seed of the ack-on-append bug (it violates)
+KAFKA_HORIZON_NS = 3_000_000_000
+KAFKA_RUNS = (10_240, 64)
+KAFKA_BUG = {"bug_ack_on_append": True, "crashes": 2}
+KAFKA_REPLAY_SEED = 2
+# phase 11, S3 at its published widths and engine defaults (5 s, queue
+# 48): seeds of the clean and the ack-before-durable runs, card then CPU
+S3_RUNS = (16_384, 64)
+S3_BUG = {"bug_ack_before_durable": True}
+S3_BUG_RUNS = (2_048, 48)
+S3_REPLAY_SEED = 12
+# phase 12, the checked kafka sweep: tests/test_oracle.py's "no false
+# positives" config, KafkaConfig(hist_slots=512) at 2 s and 20,000 steps;
+# (seeds, chunk) of the card's runs and of the CPU rehearsal's
+KAFKA_HIST_SLOTS = 512
+KAFKA_CHECKED_ENGINE = {"time_limit_ns": 2_000_000_000, "max_steps": 20_000}
+KAFKA_CLEAN_RUNS = ((10_240, 5_120), (48, 24))
+KAFKA_BUG_RUNS = ((2_048, 1_024), (32, 16))
+# phase 13, the stream: bench.py's bench_streaming etcd config (stale-read
+# bug, gray-failure spec, 3 s, 2,000 steps) at a STREAM_CURVE point; the
+# card's pool and chunk sizes (not the reference's TPU constants, 512 and
+# 1,024: an eager step costs the same at 1,024 lanes as at 16,384), then
+# the CPU rehearsal's
+STREAM_ENGINE = {"time_limit_ns": 3_000_000_000, "max_steps": 2_000}
+STREAM_RUNS = ((16_384, 8_192), (32, 16))
+STREAM_POOL = (8_192, 16)
+STREAM_ROUND_STEPS = 256
 
 
 def log(msg: str) -> None:
@@ -676,6 +733,75 @@ def etcd_fields(stale: bool) -> dict:
     return {"hist_slots": ETCD_HIST_SLOTS, "bug_stale_read": stale}
 
 
+def kafka_fields(bug: bool = False, hist_slots: int = 0) -> dict:
+    """The ``KafkaConfig`` fields of phase 10 (``hist_slots=0``) or 12."""
+    out = dict(KAFKA_BUG) if bug else {}
+    if hist_slots:
+        out["hist_slots"] = hist_slots
+    return out
+
+
+def kafka_path(bug: bool = False):
+    """Phase 10's kafka workload and engine config (queue 48)."""
+    from madsim_tpu_torch.models import kafka
+
+    cfg = kafka.KafkaConfig(**kafka_fields(bug))
+    return kafka.workload(cfg), kafka.engine_config(cfg, time_limit_ns=KAFKA_HORIZON_NS)
+
+
+def kafka_checked_path(bug: bool = False):
+    """Phase 12's kafka history workload and engine config."""
+    from madsim_tpu_torch.models import kafka
+
+    cfg = kafka.KafkaConfig(**kafka_fields(bug, KAFKA_HIST_SLOTS))
+    return kafka.workload(cfg), kafka.engine_config(cfg, **KAFKA_CHECKED_ENGINE)
+
+
+def s3_path(bug: bool = False):
+    """Phase 11's S3 workload and engine config (its defaults)."""
+    from madsim_tpu_torch.models import s3
+
+    cfg = s3.S3Config(**(S3_BUG if bug else {}))
+    return s3.workload(cfg), s3.engine_config(cfg)
+
+
+STREAM_FAULTS = {"crashes": 2, "partitions": 2, "spikes": 1, "losses": 1, "pauses": 1}
+
+
+def stream_path():
+    """Phase 13's etcd workload: bench_streaming's config."""
+    from madsim_tpu_torch.engine import faults
+    from madsim_tpu_torch.models import etcd
+
+    cfg = etcd.EtcdConfig(hist_slots=64, bug_stale_read=True,
+                          faults=faults.FaultSpec(**STREAM_FAULTS))
+    return etcd.workload(cfg), etcd.engine_config(cfg, **STREAM_ENGINE)
+
+
+def data_path(name: str) -> str:
+    return os.path.join(HERE, "madsim_tpu_torch", "data", name)
+
+
+def load_golden(name: str) -> dict:
+    with open(data_path(name)) as f:
+        return json.load(f)
+
+
+# golden file -> the config it was made from (the JAX package's model and
+# engine fields; faults as FaultSpec fields)
+GOLDEN_CONFIGS = {
+    "kafka_summary.json": {"kafka": kafka_fields(), "engine": {"time_limit_ns": KAFKA_HORIZON_NS}},
+    "s3_summary.json": {"s3": {}, "engine": {}},
+    "s3_bug_summary.json": {"s3": S3_BUG, "engine": {}},
+    "kafka_checked_clean.json": {"kafka": kafka_fields(False, KAFKA_HIST_SLOTS),
+                                 "engine": KAFKA_CHECKED_ENGINE},
+    "kafka_checked_bug.json": {"kafka": kafka_fields(True, KAFKA_HIST_SLOTS),
+                               "engine": KAFKA_CHECKED_ENGINE},
+    "etcd_stream.json": {"etcd": {"hist_slots": 64, "bug_stale_read": True},
+                         "faults": STREAM_FAULTS, "engine": STREAM_ENGINE},
+}
+
+
 def golden_path(stale: bool) -> str:
     name = "etcd_checked_stale.json" if stale else "etcd_checked_clean.json"
     return os.path.join(HERE, "madsim_tpu_torch", "data", name)
@@ -741,7 +867,7 @@ class PhaseClock:
     def count(self, *args, **kwargs):
         pass
 
-    gauge = event = event_mix = count
+    gauge = event = event_mix = sample = count
 
     def split(self) -> str:
         sweep_s = self.seconds.get("sweep_seconds", 0.0)
@@ -877,6 +1003,273 @@ def phase_checked_sweep(dev, clean=CLEAN_RUNS[0], stale=STALE_RUNS[0],
     return out
 
 
+def _peak_reset(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(dev) -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+
+def _rates(what: str, seeds: int, events: int, wall: float, calls: int, launches: int,
+           dev) -> str:
+    return (f"{what}: {seeds} seeds, {calls} step_batch calls, {launches} pop_min launches, "
+            f"wall {wall:.6f} s, {seeds / wall:.3f} seeds/s, {events / wall:.3f} events/s, "
+            f"peak device memory {_peak(dev)} B")
+
+
+def _same_summary(got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise SystemExit(f"{what}: {json.dumps(got, sort_keys=True)} != "
+                         f"{json.dumps(want, sort_keys=True)}")
+
+
+def _replay_equal(dev, wl, ecfg, seed: int, what: str):
+    """``run_traced`` of one seed on ``dev`` against the CPU replay."""
+    from madsim_tpu_torch.engine import core
+
+    g_final, g_trace = core.run_traced(wl, ecfg, seed, device=dev)
+    c_final, c_trace = core.run_traced(wl, ecfg, seed, device="cpu")
+    if sorted(g_trace) != sorted(c_trace):
+        raise SystemExit(f"{what}: replay trace keys differ")
+    for k in g_trace:
+        if not bool((g_trace[k].cpu() == c_trace[k]).all()):
+            raise SystemExit(f"{what}: replay trace {k!r} differs between {dev.type} and the CPU")
+    _leaves_equal(g_final, c_final, f"{what}: replay final state")
+    return g_final, g_trace
+
+
+def phase_kafka(dev, seeds: int = KAFKA_RUNS[0], parity_seeds: int = PARITY_SEEDS) -> dict:
+    """Phase 10: the kafka sweep (BASELINE #4) against the golden summary,
+    lanes 0-63 against the CPU port, and a violating seed's replay."""
+    import numpy as np
+
+    from madsim_tpu_torch.engine import core
+    from madsim_tpu_torch.models import kafka
+
+    wl, ecfg = kafka_path()
+    _peak_reset(dev)
+    final, calls, launches, wall = main_path_run(
+        dev, lambda: core.run_sweep(wl, ecfg, np.arange(seeds, dtype=np.int64), device=dev))
+    summary = kafka.sweep_summary(final)
+    log("kafka summary: " + json.dumps(summary, sort_keys=True))
+    log(_rates("kafka sweep", seeds, summary["events_total"], wall, calls, launches, dev)
+        + f"; loop state {core.state_bytes_per_seed(wl, ecfg)} B/seed, queue "
+        f"{ecfg.queue_capacity}")
+    if not bool(final.done.all()):
+        raise SystemExit("the kafka sweep hit max_steps before every seed finished")
+    _same_summary(summary, load_golden("kafka_summary.json")["summaries"][f"seeds={seeds}"],
+                  "kafka summary vs golden")
+    cpu = core.run_sweep(wl, ecfg, list(range(parity_seeds)), device="cpu")
+    n = _leaves_equal(cpu, core.lane_slice(final, parity_seeds, 0),
+                      f"kafka lanes 0-{parity_seeds - 1} vs the CPU port")
+    del final
+    wl_b, ecfg_b = kafka_path(bug=True)
+    b_final, b_trace = _replay_equal(dev, wl_b, ecfg_b, KAFKA_REPLAY_SEED, "kafka")
+    if not bool(b_final.wstate.violation):
+        raise SystemExit(f"kafka replay seed {KAFKA_REPLAY_SEED} did not violate")
+    log(f"kafka: summary = golden; lanes 0-{parity_seeds - 1} equal the CPU port on all {n} "
+        f"leaves; ack-on-append seed {KAFKA_REPLAY_SEED} ({int(b_trace['fired'].sum())} "
+        f"events, violation kind {int(b_final.wstate.viol_kind)}) replays on {dev.type} "
+        "as on the CPU")
+    return {"launches": launches, "steps": calls, "wall_s": wall, "summary": summary}
+
+
+def phase_s3(dev, seeds: int = S3_RUNS[0], bug_seeds: int = S3_BUG_RUNS[0],
+             parity_seeds: int = PARITY_SEEDS) -> dict:
+    """Phase 11: the S3 sweep and its ack-before-durable bug against their
+    golden summaries, lanes 0-63 against the CPU port."""
+    import numpy as np
+
+    from madsim_tpu_torch.engine import core
+    from madsim_tpu_torch.models import s3
+
+    launches = steps = 0
+    out = {}
+    for bug, n in ((False, seeds), (True, bug_seeds)):
+        wl, ecfg = s3_path(bug)
+        _peak_reset(dev)
+        final, calls, got, wall = main_path_run(
+            dev, lambda: core.run_sweep(wl, ecfg, np.arange(n, dtype=np.int64), device=dev))
+        launches, steps = launches + got, steps + calls
+        summary = s3.sweep_summary(final)
+        name = "s3_bug_summary.json" if bug else "s3_summary.json"
+        what = "S3 ack-before-durable" if bug else "S3"
+        log(f"{what} summary: " + json.dumps(summary, sort_keys=True))
+        log(_rates(f"{what} sweep", n, summary["events_total"], wall, calls, got, dev)
+            + f"; loop state {core.state_bytes_per_seed(wl, ecfg)} B/seed, queue "
+            f"{ecfg.queue_capacity}")
+        if not bool(final.done.all()):
+            raise SystemExit(f"the {what} sweep hit max_steps before every seed finished")
+        _same_summary(summary, load_golden(name)["summaries"][f"seeds={n}"],
+                      f"{what} summary vs golden")
+        if bug and summary["violations"] <= 0:
+            raise SystemExit("the ack-before-durable bug was not caught")
+        if not bug:
+            cpu = core.run_sweep(wl, ecfg, list(range(parity_seeds)), device="cpu")
+            k = _leaves_equal(cpu, core.lane_slice(final, parity_seeds, 0),
+                              f"S3 lanes 0-{parity_seeds - 1} vs the CPU port")
+            log(f"S3: lanes 0-{parity_seeds - 1} equal the CPU port on all {k} leaves")
+        out["bug" if bug else "clean"] = {"wall_s": wall, "summary": summary}
+        del final
+    log(f"S3: both summaries = golden; the bug violates on {out['bug']['summary']['violations']}"
+        f" of {bug_seeds} seeds")
+    out.update(launches=launches, steps=steps)
+    return out
+
+
+def phase_kafka_checked(dev, clean=KAFKA_CLEAN_RUNS[0], bug=KAFKA_BUG_RUNS[0],
+                        workers: int = CHECK_WORKERS) -> dict:
+    """Phase 12: the checked kafka sweep, clean and with the ack-on-append
+    bug, against their golden reports; the first chunk's log screen on
+    the device against the CPU on every lane."""
+    import numpy as np
+    import torch
+
+    from madsim_tpu_torch.engine import tree
+    from madsim_tpu_torch.models import kafka
+    from madsim_tpu_torch.oracle import check, screen
+
+    spec = kafka.history_spec()
+    launches = steps = 0
+    out = {}
+    for is_bug, (n, chunk) in ((False, clean), (True, bug)):
+        wl, ecfg = kafka_checked_path(is_bug)
+        firsts = []
+        clock = PhaseClock()
+        _peak_reset(dev)
+        with clock.timing(keep=firsts):
+            report, calls, got, wall = main_path_run(dev, lambda: screen.checked_sweep(
+                wl, ecfg, np.arange(n, dtype=np.int64), spec, kafka.sweep_summary,
+                chunk_size=chunk, workers=workers, device=dev, telemetry=clock))
+        launches, steps = launches + got, steps + calls
+        name = "kafka_checked_bug.json" if is_bug else "kafka_checked_clean.json"
+        what = "checked kafka, ack-on-append" if is_bug else "checked kafka"
+        log(f"{what}: " + json.dumps(report, sort_keys=True))
+        log(_rates(what, n, report["events_total"], wall, calls, got, dev)
+            + f"; {n // chunk} chunks of {chunk}; {clock.split()}; {report['hist_suspects']} "
+            f"suspects, {report['hist_violations']} history violations, "
+            f"{report['violations']} online")
+        _same_report(report, load_golden(name)["reports"][run_key(n, chunk)],
+                     f"{what} vs golden")
+        if is_bug and report["violations"] <= 0:
+            raise SystemExit("the ack-on-append bug was not caught")
+        if not is_bug:
+            first = firsts[0]
+            copy = tree.map(lambda a: a.cpu(), first)
+            s_dev, s_cpu = screen.screen_sweep(first, spec), screen.screen_sweep(copy, spec)
+            if not torch.equal(s_dev.cpu(), s_cpu):
+                raise SystemExit("the log screen differs between the device and the CPU")
+            log(f"checked kafka: the log screen of the first chunk ({int(s_dev.sum())} "
+                f"suspects, histories up to {int(first.hist_len.max())} rows) equals the CPU's "
+                f"on all {int(first.seed.shape[0])} lanes")
+            del first, firsts, copy
+        out["bug" if is_bug else "clean"] = {"wall_s": wall, "report": report,
+                                             "phases_s": clock.seconds}
+    check.shutdown_pools()
+    out.update(launches=launches, steps=steps)
+    return out
+
+
+def phase_stream(dev, run=STREAM_RUNS[0], pool: int = STREAM_POOL[0],
+                 workers: int = CHECK_WORKERS) -> dict:
+    """Phase 13: the stream against the chunked driver and the golden
+    (a), with its warmed second call building no kernel; the checked
+    sweep through both drivers (b); an interrupted stream resumed on the
+    device (c)."""
+    import numpy as np
+
+    from madsim_tpu_torch.engine import checkpoint, compiles, stream
+    from madsim_tpu_torch.models import etcd
+    from madsim_tpu_torch.oracle import check, history, screen
+
+    wl, ecfg = stream_path()
+    n, chunk = run
+    seeds = np.arange(n, dtype=np.int64)
+    golden = load_golden("etcd_stream.json")
+    key = run_key(n, chunk)
+    launches = steps = 0
+    kw = dict(chunk_size=chunk, pool_size=pool, round_steps=STREAM_ROUND_STEPS, device=dev)
+
+    # (a) chunked, then the stream twice: the second call inside the
+    # compile counter
+    _peak_reset(dev)
+    chunked, calls, got, c_wall = main_path_run(dev, lambda: checkpoint.run_sweep_pipelined(
+        wl, ecfg, seeds, etcd.sweep_summary, chunk_size=chunk, device=dev))
+    launches, steps = launches + got, steps + calls
+    log(_rates("stream phase, chunked driver", n, chunked["events_total"], c_wall, calls, got,
+               dev) + f"; {-(-n // chunk)} chunks of {chunk}")
+    _same_summary(chunked, golden["totals"][key], "chunked totals vs golden")
+    walls = []
+    for i in range(2):
+        stats: dict = {}
+        _peak_reset(dev)
+        with compiles.count_compiles() as counter:
+            streamed, calls, got, wall = main_path_run(dev, lambda: stream.stream_sweep(
+                wl, ecfg, seeds, etcd.sweep_summary, stats=stats, **kw))
+        launches, steps = launches + got, steps + calls
+        walls.append(wall)
+        log(_rates(f"stream call {i + 1}", n, streamed["events_total"], wall, calls, got, dev)
+            + f"; pool {pool}, chunk {chunk}, {stats['rounds']} rounds, {stats['refills']} "
+            f"refills, occupancy_mean {stats['occupancy_mean']:.6f}; {counter.count} compiles "
+            f"{counter.events}")
+        _same_summary(streamed, chunked, f"stream call {i + 1} vs chunked")
+        if i == 1 and counter.count:
+            raise SystemExit(f"the warmed stream compiled: {counter.events}")
+    log(f"stream: totals = chunked = golden ({chunked['events_total']} events, "
+        f"{chunked['violations']} online violations); stream/chunked wall "
+        f"{walls[1] / c_wall:.6f}; the warmed call built and loaded no kernel (0 by "
+        "construction once phase 2 has loaded them)")
+    out = {"chunked_wall_s": c_wall, "stream_wall_s": walls, "occupancy_mean":
+           stats["occupancy_mean"], "rounds": stats["rounds"], "refills": stats["refills"]}
+
+    # (b) the checked sweep through both drivers, the checker's pool
+    # started first so that neither driver's host checking pays for it
+    spec = etcd.history_spec()
+    empty = history.History(seed=0, ops=(), overflow=False, rows=0)
+    check.check_histories([empty] * (4 * workers), spec, workers=workers)
+    reports = {}
+    for driver in ("stream", "chunked"):
+        clock = PhaseClock()
+        rep, calls, got, wall = main_path_run(dev, lambda: screen.checked_sweep(
+            wl, ecfg, seeds, spec, etcd.sweep_summary, chunk_size=chunk, workers=workers,
+            driver=driver, device=dev, telemetry=clock))
+        launches, steps = launches + got, steps + calls
+        reports[driver] = rep
+        out[f"checked_{driver}_wall_s"] = wall
+        log(_rates(f"checked sweep, driver={driver}", n, rep["events_total"], wall, calls, got,
+                   dev) + f"; host checking {clock.seconds.get('oracle_check_seconds', 0.0):.6f}"
+            f" s; {rep['hist_suspects']} suspects, {rep['hist_violations']} history violations")
+    _same_report(reports["stream"], reports["chunked"], "checked report, stream vs chunked")
+    _same_report(reports["stream"], golden["checked"][key], "checked report vs golden")
+    check.shutdown_pools()
+
+    # (c) interrupted after two rounds on the device, then resumed there
+    build = os.path.join(HERE, "madsim_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, "phase13_stream.npz")
+    partial, calls, got, stop_wall = main_path_run(dev, lambda: stream.stream_sweep(
+        wl, ecfg, seeds, etcd.sweep_summary, ckpt_path=path, stop_after_rounds=2, **kw))
+    launches, steps = launches + got, steps + calls
+    resumed, calls, got, resume_wall = main_path_run(dev, lambda: stream.stream_sweep(
+        wl, ecfg, seeds, etcd.sweep_summary, resume_from=path, **kw))
+    launches, steps = launches + got, steps + calls
+    size = os.path.getsize(path)
+    os.remove(path)
+    _same_summary(resumed, chunked, "resumed stream vs uninterrupted")
+    log(f"stream: stopped after 2 rounds ({partial.get('seeds', 0)} seeds flushed; "
+        f"{stop_wall:.6f} s, snapshot {size} B), resumed on {dev.type} ({resume_wall:.6f} s) "
+        "to totals equal to the uninterrupted run's")
+    out.update(launches=launches, steps=steps, report=reports["stream"])
+    return out
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock from nvidia-smi (the issue ceiling's clock)."""
     out = subprocess.run(
@@ -918,17 +1311,37 @@ def main() -> int:
     for name in ("pop_min", "megasweep"):
         log(f"[{name}] " + cuda_build.LOGS.get(name, "(an identical build was loaded)").strip())
 
-    k = phase_kernel(dev)
+    seconds = {}
+
+    def timed(phase: int, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[phase] = time.perf_counter() - t
+        log(f"phase {phase}: {seconds[phase]:.3f} s")
+        return out
+
+    k = timed(2, phase_kernel, dev)
     k48 = phase_kernel(dev, etcd_queue=True)
-    final, launches = phase_main_path(dev)
-    phase_parity(final, os.path.join(HERE, "madsim_tpu_torch", "data", "flagship_summary.json"))
+    final, launches = timed(3, phase_main_path, dev)
+    timed(4, phase_parity, final,
+          os.path.join(HERE, "madsim_tpu_torch", "data", "flagship_summary.json"))
     del final
-    phase_replay(dev)
-    mega = phase_megasweep(dev, int32_ops_per_s=int32_rate)
-    phase_ab()
-    grid = phase_spec_as_data(dev)
-    checked = phase_checked_sweep(dev)
-    launches += grid["launches"] + checked["launches"]
+    timed(5, phase_replay, dev)
+    mega = timed(6, phase_megasweep, dev, int32_ops_per_s=int32_rate)
+    timed(7, phase_ab)
+    grid = timed(8, phase_spec_as_data, dev)
+    checked = timed(9, phase_checked_sweep, dev)
+    kafka_out = timed(10, phase_kafka, dev)
+    s3_out = timed(11, phase_s3, dev)
+    kafka_checked = timed(12, phase_kafka_checked, dev)
+    streamed = timed(13, phase_stream, dev)
+    per_phase = {3: launches, 8: grid["launches"], 9: checked["launches"],
+                 10: kafka_out["launches"], 11: s3_out["launches"],
+                 12: kafka_checked["launches"], 13: streamed["launches"]}
+    launches = sum(per_phase.values())
+    log(f"pop_min launches per phase (each = its step_batch calls): {json.dumps(per_phase)}; "
+        f"total {launches}")
+    log(f"phase seconds: {json.dumps({p: round(t, 3) for p, t in seconds.items()})}")
     profiled = profiled_kernels_ms([("pop_min_kernel", k["launch"], 50),
                                     ("megasweep_kernel", mega["launch"], 5)])
     log(f"profiled kernel durations (one torch.profiler session): {json.dumps(profiled)} ms")

@@ -135,6 +135,80 @@ def load_sweep(path: str, like: EngineState) -> EngineState:
     return tree.unflatten(like, out)
 
 
+def save_stream(path: str, state: EngineState, *, pending: dict, susp: dict, meta: dict) -> None:
+    """Serialize a streaming sweep's in-flight picture (format v9's
+    stream snapshot; ``engine/stream.stream_sweep`` is the only writer),
+    key for key and dtype for dtype the reference's layout:
+
+    - the lane pool's ``EngineState`` as ``leaf_{i}`` / ``leaf_{i}__key``,
+      as ``save_sweep`` writes it;
+    - ``pending``: item index -> captured row leaves (host arrays, the key
+      row as uint32 words) of results retired but not yet flushed, stacked
+      per leaf as ``pend_{j}`` in item order;
+    - ``susp``: item index -> device-screen suspect bit (absent when the
+      stream runs unscreened);
+    - ``meta``: the stream's JSON bookkeeping, stored with ``items`` and
+      ``susp`` in the ``__stream__`` tag."""
+    import json
+
+    leaves = tree.leaves(state)
+    arrays = {}
+    for i, leaf in enumerate(leaves):
+        if leaf is state.key:
+            arrays[f"leaf_{i}__key"] = _host_leaf(leaf).astype(np.uint32)
+        else:
+            arrays[f"leaf_{i}"] = _host_leaf(leaf)
+    items = sorted(int(i) for i in pending)
+    if items:
+        for j in range(len(leaves)):
+            arrays[f"pend_{j}"] = np.stack([np.asarray(pending[it][j]) for it in items])
+    stream_meta = dict(meta)
+    stream_meta["items"] = items
+    stream_meta["susp"] = [(None if it not in susp else bool(susp[it])) for it in items]
+    arrays["__stream__"] = np.frombuffer(
+        json.dumps(stream_meta, sort_keys=True).encode(), dtype=np.uint8
+    )
+    np.savez_compressed(path, __version__=_FORMAT_VERSION, **arrays)
+
+
+def load_stream(path: str, like: EngineState):
+    """Restore a stream snapshot: ``(pool state on like's device, pending
+    rows dict, suspect-bit dict, stream meta)``. ``like`` supplies the
+    tree structure and dtypes (an ``init_sweep`` of the same pool
+    shape)."""
+    import json
+
+    data = np.load(path)
+    found = int(data["__version__"])
+    if found not in _READABLE_VERSIONS or "__stream__" not in data:
+        raise ValueError(
+            f"{path} is not a readable stream snapshot (v{found}"
+            f"{', no __stream__ tag' if '__stream__' not in data else ''}); "
+            "stream snapshots are checkpoint format v9 "
+            "(engine/stream.stream_sweep ckpt_path=)"
+        )
+    like_leaves = tree.leaves(like)
+    out = [_restore_leaf(data, i, leaf, path) for i, leaf in enumerate(like_leaves)]
+    state = tree.unflatten(like, out)
+    meta = json.loads(bytes(bytearray(data["__stream__"])).decode())
+    # each stacked plane read (and decompressed) once; a pre-v10 snapshot
+    # has no pend_{j} for the trailing event-mix leaf, and only a width-0
+    # plane may be missing (_restore_leaf has refused a non-empty gap)
+    items = meta["items"]
+    planes = [
+        data[f"pend_{j}"] if f"pend_{j}" in data
+        else np.zeros((len(items),) + tuple(out[j].shape[1:]), _np_dtype(out[j]))
+        for j in range(len(like_leaves))
+    ] if items else []
+    pending, susp = {}, {}
+    for idx, it in enumerate(items):
+        pending[int(it)] = [plane[idx] for plane in planes]
+        bit = meta["susp"][idx]
+        if bit is not None:
+            susp[int(it)] = bool(bit)
+    return state, pending, susp, meta
+
+
 def resume_sweep(workload: Workload, cfg: EngineConfig, state: EngineState) -> EngineState:
     """Continue a (possibly restored) sweep on its device until every
     seed finishes."""

@@ -594,19 +594,27 @@ def checked_sweep(
     ``device_decode`` always. ``chunk_size=None`` picks one with
     ``core.pick_chunk_size``. ``device=None`` means CUDA.
 
-    ``mesh=``, ``chunk_per_device=`` (the mesh route's) and
-    ``driver="stream"`` are not ported yet and raise
-    ``NotImplementedError``: they wait for ``parallel/mesh.py`` and
-    ``engine/stream.py`` (ROADMAP queue A items 10 and 9)."""
+    ``driver="stream"`` routes the sweep through the lane pool
+    (``engine.stream.stream_sweep``): the screen runs once per retirement
+    cohort on the whole pool, and the flushed reports are byte-identical
+    to the chunked driver's (same virtual chunk boundaries, same merge
+    order). The stream keeps its own snapshots
+    (``stream_sweep(ckpt_path=...)``), so ``ckpt_dir``/``stop_after``/
+    ``resume_from`` are refused with it.
+
+    ``mesh=`` and ``chunk_per_device=`` (the mesh route's) are not ported
+    yet and raise ``NotImplementedError``: they wait for
+    ``parallel/mesh.py`` (ROADMAP queue A item 10)."""
     from ..engine import core
     from ..engine.checkpoint import run_sweep_pipelined
 
     if driver not in ("chunked", "stream"):
         raise ValueError(f"unknown driver {driver!r}")
-    if driver == "stream":
-        raise NotImplementedError(
-            "checked_sweep(driver='stream') waits for the port of "
-            "engine/stream.py (ROADMAP queue A item 9)"
+    if driver == "stream" and (ckpt_dir is not None or stop_after is not None or resume_from):
+        raise ValueError(
+            "driver='stream' manages its own snapshots — use "
+            "engine.stream.stream_sweep(ckpt_path=...) directly for "
+            "interrupt/resume"
         )
     if mesh is not None or chunk_per_device is not None:
         raise NotImplementedError(
@@ -628,18 +636,27 @@ def checked_sweep(
     )
     if chunk_size is None:
         chunk_size = core.pick_chunk_size(workload, cfg)
-    totals = run_sweep_pipelined(
-        workload, cfg, seeds, summarize,
-        host_work=host_work,
-        screen=screen_fn,
-        chunk_size=chunk_size,
-        ckpt_dir=ckpt_dir,
-        stop_after=stop_after,
-        resume_from=resume_from,
-        on_chunk=on_chunk,
-        telemetry=telemetry,
-        device=device,
-    )
+    if driver == "stream":
+        from ..engine.stream import stream_sweep
+
+        totals = stream_sweep(
+            workload, cfg, seeds, summarize,
+            chunk_size=chunk_size, host_work=host_work, screen=screen_fn,
+            on_chunk=on_chunk, telemetry=telemetry, device=device,
+        )
+    else:
+        totals = run_sweep_pipelined(
+            workload, cfg, seeds, summarize,
+            host_work=host_work,
+            screen=screen_fn,
+            chunk_size=chunk_size,
+            ckpt_dir=ckpt_dir,
+            stop_after=stop_after,
+            resume_from=resume_from,
+            on_chunk=on_chunk,
+            telemetry=telemetry,
+            device=device,
+        )
     if "hist_violating_seeds" in totals:
         totals["hist_violating_seeds"] = totals["hist_violating_seeds"][:max_recorded]
     return totals

@@ -117,8 +117,9 @@ def test_routes_not_ported_yet_refuse():
         pscreen.checked_sweep(*args, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="queue A item 10"):
         pscreen.checked_sweep(*args, chunk_per_device=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        pscreen.checked_sweep(*args, driver="stream", device="cpu")
+    # the stream driver is ported; it keeps its own snapshots
+    with pytest.raises(ValueError, match="own snapshots"):
+        pscreen.checked_sweep(*args, driver="stream", ckpt_dir="unused", device="cpu")
     with pytest.raises(ValueError, match="unknown driver"):
         pscreen.checked_sweep(*args, driver="bogus", device="cpu")
     with pytest.raises(ValueError, match="no device screen"):

@@ -141,3 +141,61 @@ def test_pop_min_bound_at_the_etcd_queue_width():
     assert ms == pytest.approx((16_384 * 48 * 8 + 16_384 * 9) / 3.35e12 * 1e3)
     wl, ecfg = chip_smoke.etcd_path()
     assert ecfg.queue_capacity == 48 and wl.hist_slots == chip_smoke.ETCD_HIST_SLOTS
+
+
+def test_new_phases_configs_agree_with_their_goldens():
+    """Phases 10-13 run the configs their golden files were made from:
+    each path's model config has the golden's fields (the rest at their
+    defaults) and its engine config the golden's overrides; the widths
+    are the published ones (queue 48 for kafka and S3)."""
+    from madsim_tpu_torch.engine import faults
+    from madsim_tpu_torch.models import etcd, kafka, s3
+
+    def fields(cfg, cls):
+        d = {k: v for k, v in cfg._asdict().items() if v != getattr(cls(), k)}
+        if d.get("faults") is not None:
+            d["faults"] = {k: v for k, v in d["faults"]._asdict().items()
+                           if v != getattr(faults.FaultSpec(), k)}
+        return d
+
+    cases = {
+        "kafka_summary.json": (chip_smoke.kafka_path(), kafka, "kafka"),
+        "s3_summary.json": (chip_smoke.s3_path(), s3, "s3"),
+        "s3_bug_summary.json": (chip_smoke.s3_path(bug=True), s3, "s3"),
+        "kafka_checked_clean.json": (chip_smoke.kafka_checked_path(), kafka, "kafka"),
+        "kafka_checked_bug.json": (chip_smoke.kafka_checked_path(bug=True), kafka, "kafka"),
+        "etcd_stream.json": (chip_smoke.stream_path(), etcd, "etcd"),
+    }
+    assert sorted(cases) == sorted(chip_smoke.GOLDEN_CONFIGS)
+    for name, ((wl, ecfg), mod, key) in cases.items():
+        golden = chip_smoke.load_golden(name)
+        assert golden["config"] == chip_smoke.GOLDEN_CONFIGS[name]
+        cfg = wl.init.args[0]
+        cls = type(cfg)
+        got = fields(cfg, cls)
+        want = dict(golden["config"][key])
+        if "faults" in golden["config"]:
+            want["faults"] = golden["config"]["faults"]
+        assert got == want, name
+        assert ecfg == mod.engine_config(cfg, **golden["config"]["engine"]), name
+    kafka_ecfg = chip_smoke.kafka_path()[1]
+    s3_ecfg = chip_smoke.s3_path()[1]
+    assert (kafka_ecfg.queue_capacity, kafka_ecfg.time_limit_ns) == (48, 3_000_000_000)
+    assert (s3_ecfg.queue_capacity, s3_ecfg.time_limit_ns) == (48, 5_000_000_000)
+    # the golden sizes are the ones the phases run, card and rehearsal
+    assert sorted(chip_smoke.load_golden("kafka_summary.json")["summaries"]) == sorted(
+        f"seeds={n}" for n in chip_smoke.KAFKA_RUNS)
+    assert sorted(chip_smoke.load_golden("etcd_stream.json")["totals"]) == sorted(
+        chip_smoke.run_key(n, c) for n, c in chip_smoke.STREAM_RUNS)
+    assert chip_smoke.STREAM_RUNS[0] == (16_384, 8_192) and chip_smoke.STREAM_POOL[0] == 8_192
+
+
+def test_kafka_and_s3_replay_seeds_violate():
+    """The replayed seeds are violating ones on the CPU port."""
+    from madsim_tpu_torch.engine import core
+
+    for path, seed in ((chip_smoke.kafka_path(bug=True), chip_smoke.KAFKA_REPLAY_SEED),
+                       (chip_smoke.s3_path(bug=True), chip_smoke.S3_REPLAY_SEED)):
+        wl, ecfg = path
+        final = core.run_sweep(wl, ecfg, [seed], device="cpu")
+        assert bool(final.wstate.violation[0])

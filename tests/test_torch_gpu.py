@@ -235,3 +235,69 @@ def test_host_phase_gathers_sparse_suspects_on_the_card():
         for state in (final, copy) for decode in (True, False)
     ]
     assert all(r == reports[0] for r in reports) and reports[0]["hist_suspects"] == 5
+
+
+def _steps_equal_on_both(wl, ecfg, seeds, steps):
+    """``steps`` events of ``seeds`` on the card and on the CPU: every
+    leaf equal after each of them."""
+    from madsim_tpu_torch.engine import core, state_io
+
+    gpu = core.init_sweep(wl, ecfg, seeds, device="cuda")
+    cpu = core.init_sweep(wl, ecfg, seeds, device="cpu")
+    for i in range(steps):
+        gpu = core.step_batch(wl, ecfg, gpu, device="cuda")
+        cpu = core.step_batch(wl, ecfg, cpu, device="cpu")
+        assert state_io.first_difference(gpu, cpu) is None, f"step {i + 1}"
+    return gpu
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bug", [False, True], ids=["clean", "bug"])
+def test_kafka_and_s3_steps_on_the_card_equal_the_cpu(bug):
+    """Phases 10-11's models: 40 ``step_batch`` events of 512 seeds on the
+    card equal the CPU after every event (pop_min launched each time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for path in (chip_smoke.kafka_path(bug), chip_smoke.s3_path(bug),
+                 chip_smoke.kafka_checked_path(bug)):
+        before = cuda_queue.pop_min_decision.launches
+        _steps_equal_on_both(*path, torch.arange(512), 40)
+        assert cuda_queue.pop_min_decision.launches == before + 40
+
+
+@pytest.mark.gpu
+def test_stream_round_on_the_card_equals_the_cpu():
+    """One stream round and one row refill of phase 13's config on the
+    card equal the CPU's, lane for lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from madsim_tpu_torch.engine import core, state_io, stream
+
+    wl, ecfg = chip_smoke.stream_path()
+    budget = torch.full((256,), 150, dtype=torch.int32)
+    budget[::3] = 40
+    out = []
+    for dev in ("cuda", "cpu"):
+        state = core.init_sweep(wl, ecfg, torch.arange(256), device=dev)
+        state = stream._round(wl, ecfg, 96, state, budget.to(dev), stop_live=200)
+        lanes = torch.arange(0, 256, 3).numpy()
+        state = stream._refill_rows(wl, ecfg, state, lanes, lanes + 1000)
+        out.append(state)
+    assert state_io.first_difference(*out) is None
+    assert int(out[0].ctr.min()) == 0 and int(out[0].ctr.max()) > 40
+
+
+@pytest.mark.gpu
+def test_count_compiles_counts_a_kernel_load_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from madsim_tpu_torch.engine import compiles, cuda_build
+
+    cuda_queue.build()
+    cuda_build._LIBS.pop("pop_min")
+    with compiles.count_compiles() as c:
+        cuda_queue.build()
+    assert c.count >= 1 and ("load", "pop_min") in c.events
+    with compiles.count_compiles() as c:
+        cuda_queue.build()
+    assert c.count == 0

@@ -29,6 +29,8 @@ MODULES = [
     "madsim_tpu_torch.engine.state_io",
     "madsim_tpu_torch.engine.tree",
     "madsim_tpu_torch.engine.checkpoint",
+    "madsim_tpu_torch.engine.stream",
+    "madsim_tpu_torch.engine.compiles",
     "madsim_tpu_torch.oracle",
     "madsim_tpu_torch.oracle.history",
     "madsim_tpu_torch.oracle.specs",
@@ -37,6 +39,9 @@ MODULES = [
     "madsim_tpu_torch.models._common",
     "madsim_tpu_torch.models.raft",
     "madsim_tpu_torch.models.etcd",
+    "madsim_tpu_torch.models.kafka",
+    "madsim_tpu_torch.models.s3",
+    "madsim_tpu_torch.models",
     "madsim_tpu_torch.bench_megakernel",
 ]
 
@@ -118,12 +123,15 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
 
     cfg = raft.RaftConfig(num_nodes=3, crashes=1)
     wl, ecfg = raft.workload(cfg), raft.engine_config(cfg, max_steps=10)
-    from madsim_tpu_torch.engine import checkpoint
+    from madsim_tpu_torch.engine import checkpoint, stream
     from madsim_tpu_torch.oracle import screen
 
     spec = raft.history_spec()
     for call in (
         lambda: checkpoint.run_sweep_pipelined(wl, ecfg, np.arange(4), raft.sweep_summary),
+        lambda: stream.stream_sweep(wl, ecfg, np.arange(4), raft.sweep_summary, chunk_size=2),
+        lambda: screen.checked_sweep(wl, ecfg, np.arange(4), spec, raft.sweep_summary,
+                                     driver="stream"),
         lambda: screen.checked_sweep(wl, ecfg, np.arange(4), spec, raft.sweep_summary),
         lambda: screen.screen_history(np.zeros((3, 5), np.int32), np.zeros(3, np.int64), 0, spec),
         lambda: core.run_sweep(wl, ecfg, np.arange(4)),
