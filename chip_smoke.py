@@ -91,15 +91,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     shows only that nothing was rebuilt);
     (b) ``checked_sweep`` with ``driver="stream"`` and ``"chunked"``,
     byte-equal reports equal to the golden; (c) a stream stopped after 2
-    rounds and resumed on the card to the uninterrupted totals.
+    rounds and resumed on the card to the uninterrupted totals;
+14. the seed mesh on the card (``madsim_tpu_torch.parallel``): phase 9's
+    clean checked sweep (32,768 seeds) through ``checked_sweep(mesh=)`` at
+    world size 1 (one rank, NCCL; 16,384 lanes per chunk) and 2 (two
+    ranks sharing the card over gloo; 8,192 lanes per rank), each rank's
+    report equal to ``etcd_checked_clean.json``; at world size 2 the
+    flagship's seeds 0-63 through ``run_sweep_sharded``, equal to
+    ``flagship_summary.json``; per world size the wall (the slowest
+    rank's), seeds/s, events/s, each rank's peak device memory and
+    pop_min launches against its ``step_batch`` calls;
+15. the campaign on the card: ``entry.dryrun_multichip(2)`` (the sharded
+    step, sweep and chunked composition against unsharded runs, and the
+    amnesia gate's checked-sweep curve over 1 and 2 ranks at 2,048 seeds,
+    each world size's report sha256 equal to the JAX reference's at as
+    many devices, stored in ``campaign_amnesia.json``'s ``curves``)
+    on a 2-rank world, then ``explore.sharded_campaign`` of
+    ``amnesia_gate(smoke=False)`` at ``CampaignConfig(rounds=2,
+    seeds_per_round=8192, chunk_size=4096)`` on 2 ranks, its JSONL
+    report's sha256 equal to the JAX-made golden
+    ``madsim_tpu_torch/data/campaign_amnesia.json``; rounds, seeds/s,
+    events/s, violations, distinct failures and time to first bug.
 
-Phases 10-13 print their wall seconds, seeds/s, events/s and peak device
+Phases 10-15 print their wall seconds, seeds/s, events/s and peak device
 memory, and each zeroes pop_min's launch count before every driven run
 and checks it equals the ``step_batch`` calls. Every phase's seconds are
 printed. After the phases, both kernels' ``torch.profiler`` durations,
 from one profiler session, are printed beside their CUDA-graph times.
 The line before the last is ``{"kernels": [...]}`` (pop_min's launches
-summed over phases 3 and 8-13, its Q = 48 times beside the Q = 64 ones);
+summed over phases 3 and 8-15 and, in 14-15, over the ranks; its Q = 48
+times beside the Q = 64 ones);
 the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -210,6 +231,24 @@ STREAM_ENGINE = {"time_limit_ns": 3_000_000_000, "max_steps": 2_000}
 STREAM_RUNS = ((16_384, 8_192), (32, 16))
 STREAM_POOL = (8_192, 16)
 STREAM_ROUND_STEPS = 256
+# phase 14, the mesh on one card: phase 9's clean checked etcd sweep at
+# world sizes 1 (NCCL) and 2 (two ranks sharing the card over gloo), the
+# same global chunk at both (so the report is phase 9's golden); (seeds,
+# global chunk) of the card's run, then of the CPU rehearsal's (two gloo
+# ranks); and the flagship's seeds 0-63 sharded over 2 ranks
+MESH_WORLDS = (1, 2)
+MESH_RUNS = (CLEAN_RUNS[0], CLEAN_RUNS[1])
+MESH_FLAGSHIP_SEEDS = PARITY_SEEDS
+# phase 15, the campaign: dryrun_multichip(2)'s checked-sweep curve
+# (seeds, per-rank chunk, warm-up seeds: None is one chunk, which loads
+# the kernels untimed; the CPU has nothing to warm) on the card and on
+# the CPU, and the amnesia gate's campaign (amnesia_gate(smoke=False))
+# on 2 ranks: (rounds, seeds_per_round, chunk_size) of the card's run,
+# then the rehearsal's. The card's run is cut from 4 rounds to 2: 4 took
+# 127 s on 2 ranks, and phases 14-15 are held to about 3 minutes
+CURVE_RUNS = ((2_048, 1_024, None), (64, 32, 0))
+CAMPAIGN_RUNS = ((2, 8_192, 4_096), (2, 32, 32))
+CAMPAIGN_WORLD = 2
 
 
 def log(msg: str) -> None:
@@ -787,6 +826,23 @@ def load_golden(name: str) -> dict:
         return json.load(f)
 
 
+# phase 15's golden: the JAX package's campaign report of the amnesia gate
+CAMPAIGN_GOLDEN = "campaign_amnesia.json"
+
+
+def campaign_golden_config() -> dict:
+    """What phase 15's golden reports were made from."""
+    return {"target": "explore.targets.amnesia_gate(smoke=False)", "world": "unsharded"}
+
+
+def campaign_key(rounds: int, seeds_per_round: int, chunk_size: int) -> str:
+    return f"rounds={rounds} seeds_per_round={seeds_per_round} chunk_size={chunk_size}"
+
+
+def curve_key(seeds: int, chunk_per_device: int) -> str:
+    return f"seeds={seeds} chunk_per_device={chunk_per_device}"
+
+
 # golden file -> the config it was made from (the JAX package's model and
 # engine fields; faults as FaultSpec fields)
 GOLDEN_CONFIGS = {
@@ -1269,6 +1325,213 @@ def phase_stream(dev, run=STREAM_RUNS[0], pool: int = STREAM_POOL[0],
     out.update(launches=launches, steps=steps, report=reports["stream"])
     return out
 
+# phases 14-15 run their sweeps on the ranks of a parallel.World: these
+# jobs run in each rank (spawned processes that import this module) and
+# return host values
+
+
+def _rank_checked(mesh, n: int, cpd: int, workers: int) -> dict:
+    """Phase 14 on one rank: the clean checked etcd sweep on the mesh,
+    rank 0's checker pool (the host phase runs there alone) started
+    before the timed region."""
+    import numpy as np
+
+    from madsim_tpu_torch.models import etcd
+    from madsim_tpu_torch.oracle import check, history, screen
+
+    dev = mesh.device
+    spec = etcd.history_spec()
+    wl, ecfg = etcd_path()
+    if workers and mesh.rank == 0:
+        empty = history.History(seed=0, ops=(), overflow=False, rows=0)
+        check.check_histories([empty] * (4 * workers), spec, workers=workers)
+    _peak_reset(dev)
+    report, calls, launches, wall = main_path_run(dev, lambda: screen.checked_sweep(
+        wl, ecfg, np.arange(n, dtype=np.int64), spec, etcd.sweep_summary, mesh=mesh,
+        chunk_per_device=cpd, workers=workers))
+    check.shutdown_pools()
+    return {"report": report, "calls": calls, "launches": launches, "wall": wall,
+            "peak": _peak(dev), "device": str(dev)}
+
+
+def _rank_flagship(mesh, n: int) -> dict:
+    """Phase 14 on one rank: the flagship's seeds ``0..n-1`` through
+    ``run_sweep_sharded``."""
+    import numpy as np
+
+    from madsim_tpu_torch import parallel
+    from madsim_tpu_torch.models import raft
+
+    wl, ecfg = flagship()
+    _peak_reset(mesh.device)
+    final, calls, launches, wall = main_path_run(mesh.device, lambda: parallel.run_sweep_sharded(
+        wl, ecfg, np.arange(n, dtype=np.int64), mesh))
+    return {"summary": raft.sweep_summary(final), "calls": calls, "launches": launches,
+            "wall": wall, "peak": _peak(mesh.device)}
+
+
+_RANK_COUNTER: dict = {}
+
+
+def _rank_count(mesh, start: bool):
+    """Start counting a rank's ``core.step_batch`` calls (pop_min's count
+    zeroed), or stop and return ``{"calls", "launches"}``: the counting
+    around a run this script does not call itself (``dryrun_multichip``)."""
+    from madsim_tpu_torch.engine import core, cuda_queue
+
+    del mesh
+    if start:
+        step_batch, calls = core.step_batch, [0]
+
+        def counted(*args, **kwargs):
+            calls[0] += 1
+            return step_batch(*args, **kwargs)
+
+        _RANK_COUNTER.update(step_batch=step_batch, calls=calls)
+        core.step_batch = counted
+        cuda_queue.pop_min_decision.launches = 0
+        return None
+    core.step_batch = _RANK_COUNTER.pop("step_batch")
+    return {"calls": _RANK_COUNTER.pop("calls")[0],
+            "launches": cuda_queue.pop_min_decision.launches}
+
+
+def _rank_campaign(mesh, run, path: str) -> dict:
+    """Phase 15 on one rank: ``sharded_campaign`` of the amnesia gate."""
+    from madsim_tpu_torch.explore import CampaignConfig, sharded_campaign
+    from madsim_tpu_torch.explore.targets import amnesia_gate
+
+    target, base = amnesia_gate(smoke=False)
+    rounds, spr, chunk = run
+    ccfg = CampaignConfig(rounds=rounds, seeds_per_round=spr, chunk_size=chunk)
+    _peak_reset(mesh.device)
+    metrics, calls, launches, wall = main_path_run(mesh.device, lambda: sharded_campaign(
+        target, base, ccfg, mesh.size, report_path=path, mesh=mesh))
+    return {"metrics": metrics, "calls": calls, "launches": launches, "wall": wall,
+            "peak": _peak(mesh.device)}
+
+
+def _rank_line(what: str, seeds: int, events: int, ranks: list) -> str:
+    """Wall (the slowest rank's), rates, per-rank peaks and counts."""
+    wall = max(r["wall"] for r in ranks)
+    return (f"{what}: {seeds} seeds, wall {wall:.6f} s, {seeds / wall:.3f} seeds/s, "
+            f"{events / wall:.3f} events/s, peak device memory per rank "
+            f"{[r['peak'] for r in ranks]} B, pop_min launches {[r['launches'] for r in ranks]}"
+            f" vs step_batch calls {[r['calls'] for r in ranks]}")
+
+
+def _counted(dev, ranks: list, what: str):
+    """Launches and calls summed over the ranks; on the card they must be
+    equal."""
+    calls = sum(r["calls"] for r in ranks)
+    launches = sum(r["launches"] for r in ranks)
+    if dev.type == "cuda" and launches != calls:
+        raise SystemExit(f"{what}: pop_min launches ({launches}) != step_batch calls ({calls})")
+    return launches, calls
+
+
+def phase_mesh(dev, run=MESH_RUNS[0], worlds=MESH_WORLDS,
+               flagship_seeds: int = MESH_FLAGSHIP_SEEDS, workers: int = CHECK_WORKERS) -> dict:
+    """Phase 14: phase 9's clean checked etcd sweep at each world size
+    (NCCL for one rank on the card, gloo for ranks sharing it), the global
+    chunk the same, against phase 9's golden report; at world size 2, the
+    flagship's seeds 0-63 through ``run_sweep_sharded`` against the golden
+    summary."""
+    from madsim_tpu_torch.parallel import World
+
+    n, chunk = run
+    want = load_golden("etcd_checked_clean.json")["reports"][run_key(n, chunk)]
+    flag_want = load_golden("flagship_summary.json")["summary"]
+    launches = steps = 0
+    out = {"walls": {}}
+    for w in worlds:
+        t0 = time.perf_counter()
+        with World(w, device=dev.type) as world:
+            up = time.perf_counter() - t0
+            ranks = world.run(_rank_checked, n, chunk // w, workers)
+            for r, got in enumerate(ranks):
+                _same_report(got["report"], want, f"checked sweep, rank {r} of {w}")
+            got, calls = _counted(dev, ranks, f"checked sweep on {w} rank(s)")
+            launches, steps = launches + got, steps + calls
+            out["walls"][w] = max(r["wall"] for r in ranks)
+            log(_rank_line(f"mesh: checked etcd sweep on {w} rank(s) ({world.backend}, "
+                           f"{[r['device'] for r in ranks]}; spawn and init {up:.3f} s; "
+                           f"{chunk // w} lanes per rank per chunk)", n,
+                           want["events_total"], ranks) + "; report = golden")
+            if w == 2 and flagship_seeds:
+                ranks = world.run(_rank_flagship, flagship_seeds)
+                for r, got in enumerate(ranks):
+                    _same_summary(got["summary"], flag_want, f"flagship, rank {r} of 2")
+                got, calls = _counted(dev, ranks, "flagship on 2 ranks")
+                launches, steps = launches + got, steps + calls
+                log(_rank_line("mesh: flagship run_sweep_sharded on 2 ranks", flagship_seeds,
+                               flag_want["events_total"], ranks) + "; summary = golden")
+    if len(out["walls"]) == 2:
+        w1, w2 = (out["walls"][w] for w in worlds)
+        log(f"mesh: checked sweep wall, world size {worlds[1]} / {worlds[0]}: {w2 / w1:.6f}")
+    out.update(launches=launches, steps=steps)
+    return out
+
+
+def phase_campaign(dev, curve=CURVE_RUNS[0], run=CAMPAIGN_RUNS[0],
+                   n: int = CAMPAIGN_WORLD) -> dict:
+    """Phase 15: ``entry.dryrun_multichip(n)`` on the device (its curve's
+    report hash per world size against the JAX golden's), then
+    ``sharded_campaign`` of the amnesia gate on ``n`` ranks against its
+    JAX-made golden report (sha256 of the JSONL bytes)."""
+    import hashlib
+
+    from madsim_tpu_torch import entry
+    from madsim_tpu_torch.parallel import World
+
+    key = campaign_key(*run)
+    goldens = load_golden(CAMPAIGN_GOLDEN)
+    golden = goldens["reports"][key]
+    curve_want = goldens["curves"][curve_key(curve[0], curve[1])]
+    build = os.path.join(HERE, "madsim_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, "phase15_campaign.jsonl")
+    out = {}
+    with World(n, device=dev.type) as world:
+        world.run(_rank_count, True)
+        t0 = time.perf_counter()
+        dry = entry.dryrun_multichip(n, device=dev, curve_seeds=curve[0], curve_chunk=curve[1],
+                                     curve_warm=curve[2], world=world)
+        d_wall = time.perf_counter() - t0
+        d_launches, d_calls = _counted(dev, world.run(_rank_count, False), "dry run")
+        log(f"dryrun_multichip({n}) on {dev.type} ({world.backend}): {d_wall:.6f} s, "
+            f"{d_launches} pop_min launches = {d_calls} step_batch calls over the ranks; curve "
+            + json.dumps([{k: p[k] for k in ("devices", "wall_s", "seeds_per_sec",
+                                             "violations", "report_sha256")}
+                          for p in dry["curve"]["curve"]])
+            + f"; bytes_invariant {dry['curve']['bytes_invariant']}")
+        for p in dry["curve"]["curve"]:
+            want = curve_want["report_sha256"][str(p["devices"])]
+            if p["report_sha256"] != want:
+                raise SystemExit(f"curve report at world size {p['devices']}: sha256 "
+                                 f"{p['report_sha256']} != the JAX golden's {want}")
+        log("dry run curve: report sha256 = the JAX golden's at world sizes "
+            f"{[p['devices'] for p in dry['curve']['curve']]} (the reference's hist_unique "
+            f"{curve_want['hist_unique']}, its bytes_invariant {curve_want['bytes_invariant']})")
+        ranks = world.run(_rank_campaign, run, path)
+    metrics = ranks[0]["metrics"]
+    with open(path, "rb") as f:
+        blob = f.read()
+    os.remove(path)
+    sha = hashlib.sha256(blob).hexdigest()
+    if sha != golden["sha256"] or metrics["report_sha256"] != sha:
+        raise SystemExit(f"campaign report sha256 {sha} != golden {golden['sha256']}: "
+                         f"{blob.decode()[:2000]}")
+    c_launches, c_calls = _counted(dev, ranks, "campaign")
+    log(_rank_line(f"campaign ({key}) on {n} ranks", metrics["seeds_swept"],
+                   metrics["events_total"], ranks)
+        + f"; {metrics['rounds']} rounds, {metrics['violations_total']} violations, "
+        f"{metrics['distinct_failures']} distinct failures, corpus {metrics['corpus_size']}, "
+        f"time to first bug {metrics['time_to_first_bug_s']} s; report sha256 = golden")
+    out.update(launches=d_launches + c_launches, steps=d_calls + c_calls, dry_wall=d_wall,
+               metrics=metrics)
+    return out
+
 
 def sm_clock_hz() -> float:
     """The card's maximum SM clock from nvidia-smi (the issue ceiling's clock)."""
@@ -1297,6 +1560,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"torch.cuda.device_count() = {torch.cuda.device_count()}")
 
     clock = sm_clock_hz()
     int32_rate = SMS * ISSUE_LANES_PER_SM * clock
@@ -1335,11 +1599,16 @@ def main() -> int:
     s3_out = timed(11, phase_s3, dev)
     kafka_checked = timed(12, phase_kafka_checked, dev)
     streamed = timed(13, phase_stream, dev)
+    torch.cuda.empty_cache()  # the ranks of phases 14-15 share the card
+    meshed = timed(14, phase_mesh, dev)
+    campaigned = timed(15, phase_campaign, dev)
     per_phase = {3: launches, 8: grid["launches"], 9: checked["launches"],
                  10: kafka_out["launches"], 11: s3_out["launches"],
-                 12: kafka_checked["launches"], 13: streamed["launches"]}
+                 12: kafka_checked["launches"], 13: streamed["launches"],
+                 14: meshed["launches"], 15: campaigned["launches"]}
     launches = sum(per_phase.values())
-    log(f"pop_min launches per phase (each = its step_batch calls): {json.dumps(per_phase)}; "
+    log(f"pop_min launches per phase (each = its step_batch calls, summed over the ranks "
+        f"in 14-15): {json.dumps(per_phase)}; "
         f"total {launches}")
     log(f"phase seconds: {json.dumps({p: round(t, 3) for p, t in seconds.items()})}")
     profiled = profiled_kernels_ms([("pop_min_kernel", k["launch"], 50),

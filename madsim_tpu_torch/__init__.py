@@ -6,9 +6,14 @@ This package imports ``torch`` and numpy only — never ``jax`` and nothing
 of ``madsim_tpu``.
 
 Layout mirrors the reference: ``engine/`` (rng, ops, queue, core, net,
-faults, checkpoint, the pop-min and megasweep CUDA kernels), ``models/``
-(raft, etcd), ``oracle/`` (the history decoder, the sequential specs, the
-WGL checker and the device screens behind ``checked_sweep``).
+faults, checkpoint, the streaming lane pool ``stream``, the pop-min and
+megasweep CUDA kernels), ``models/`` (raft, etcd, kafka, s3), ``oracle/``
+(the history decoder, the sequential specs, the WGL checker and the
+device screens behind ``checked_sweep``), ``parallel/`` (the seed mesh:
+sharded sweeps over ``torch.distributed`` ranks, and ``World``, which
+spawns them), ``explore/`` (the coverage-guided campaign loop: targets,
+triage, shrink, campaign, fleet), ``replay`` (its host helpers) and
+``entry`` (a one-step check and the multi-rank dry run).
 
 Every entry point takes ``device=None``; ``None`` means CUDA and raises
 when no GPU is present — it never falls back to the CPU. Pass

@@ -247,11 +247,12 @@ def _load_chunk_summary(path: str, first: int, last: int, sha: str, fp: str) -> 
 
 
 def _write_chunk_summary(path: str, first: int, last: int, sha: str, fp: str, summary: dict) -> None:
-    """Atomically write one chunk's record (tmp + rename)."""
+    """Atomically write one chunk's record (tmp + rename). The tmp name
+    is the writer's own: the ranks of a mesh write the same record."""
     import json
     import os
 
-    tmp = path + ".tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         json.dump(
             {

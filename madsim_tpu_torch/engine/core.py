@@ -285,19 +285,27 @@ def step_batch(
     return _step(workload, cfg, state)[0]
 
 
-def drive(workload: Workload, cfg: EngineConfig, state: EngineState) -> EngineState:
+def drive(workload: Workload, cfg: EngineConfig, state: EngineState,
+          live: Optional[Callable[[EngineState], int]] = None) -> EngineState:
     """Step a batched state until every seed is done or ``cfg.max_steps``
     steps have run.
 
     The reference tests ``any(~done)`` before every step. Here the host
-    reads the all-done flag once per ``CHECK_EVERY`` steps, so the GPU is
-    not synchronised every event. That is bit-identical: a done lane is a
+    reads the live count (``live(state)``; default the state's own
+    not-done lanes) once per ``CHECK_EVERY`` steps, so the GPU is not
+    synchronised every event. That is bit-identical: a done lane is a
     frozen no-op (its pop and pushes are disabled and every write is
     gated by ``take``), so the extra steps after the last seed finishes
-    change nothing — and the step count never exceeds ``max_steps``."""
+    change nothing — and the step count never exceeds ``max_steps``. The
+    seed mesh passes the count summed over its ranks, so every rank runs
+    the same steps."""
+    if live is None:
+        live = lambda s: int((~s.done).sum())  # noqa: E731
     steps = 0
-    while steps < cfg.max_steps and not bool(state.done.all()):
+    while steps < cfg.max_steps and live(state) > 0:
         n = min(CHECK_EVERY, cfg.max_steps - steps)
+        # stepped in this frame, so each step's input state is freed as
+        # the next one starts (a helper's caller would hold the first)
         for _ in range(n):
             state = step_batch(workload, cfg, state, device=state.now_ns.device)
         steps += n

@@ -13,9 +13,20 @@ their step budget spent) are captured into per-chunk result buffers on
 the pool's device (one gather per leaf) and **refilled** from the work
 queue by a fixed-width row re-init (``_refill_rows``). The key leaf is
 already its uint32 words here, so the reference's ``_leaf_info``/
-``_pool_to_host``/``_buf_state`` key handling has no counterpart, and
-its full-pool ``_refill``/``_mask_tree`` and ``_round_sharded`` serve
-only the mesh path, which waits with ``parallel/mesh.py``.
+``_pool_to_host``/``_buf_state`` key handling has no counterpart.
+
+The mesh route (``mesh=``, a ``parallel.SeedMesh``; every rank calls
+with the same arguments): the pool rounds up to mesh divisibility and
+rank ``r`` holds the lanes ``[r*L/n, (r+1)*L/n)``. Every rank keeps the
+same host bookkeeping. A round steps the local lanes, its live count
+summed over the ranks (``_round`` with ``mesh``, the reference's
+``_round_sharded``), so all ranks leave it together; the ranks' ``done``
+and ``ctr`` are gathered, so every rank derives the same retirements
+and the same refill assignment. When lanes retire, the whole pool is
+gathered for the screen and the capture, so every rank flushes the same
+chunks; the host phase runs on rank 0 and its verdict is broadcast
+(``parallel.mesh.rank0_host_work``); each rank re-inits its own retired
+lanes through the same row refill, at their local indices.
 
 Determinism: a lane's final state is a pure function of its work item
 (the engine's per-lane masking makes neighbours invisible), results are
@@ -45,8 +56,8 @@ up to 15 steps past its quorum), which the report is invariant to;
 16 keeps the syncs to one per 16 eager steps while bounding the quorum's
 lag at 15 frozen steps.
 
-``device=None`` means CUDA (``madsim_tpu_torch.resolve_device``);
-``mesh=`` is not ported yet.
+``device=None`` means CUDA (``madsim_tpu_torch.resolve_device``); with
+a mesh the pool lives on the mesh's devices.
 """
 
 from __future__ import annotations
@@ -75,17 +86,24 @@ def _freeze_step(workload: Workload, cfg: EngineConfig, s: EngineState, budget):
     return s2._replace(done=torch.where(over, s.done, s2.done))
 
 
-def _live(state: EngineState, budget) -> int:
-    return int((~state.done & (state.ctr < budget)).sum())
+def _live(state: EngineState, budget, mesh=None) -> int:
+    live = int((~state.done & (state.ctr < budget)).sum())
+    if mesh is None:
+        return live
+    from ..parallel.mesh import all_sum
+
+    return all_sum(mesh, live)
 
 
 def _round(workload: Workload, cfg: EngineConfig, round_steps: int, state: EngineState,
-           budget, stop_live: int):
+           budget, stop_live: int, mesh=None):
     """One round: up to ``round_steps`` events for every live lane (not
     done and under its own budget), leaving once the live count, read
-    every ``ROUND_CHECK_EVERY`` steps, is at most ``stop_live``."""
+    every ``ROUND_CHECK_EVERY`` steps, is at most ``stop_live``. With
+    ``mesh`` the state and budget are the local lanes and the count is
+    summed over the ranks, so every rank runs the same steps."""
     i = 0
-    while i < round_steps and _live(state, budget) > stop_live:
+    while i < round_steps and _live(state, budget, mesh) > stop_live:
         k = min(ROUND_CHECK_EVERY, round_steps - i)
         for _ in range(k):
             state = _freeze_step(workload, cfg, state, budget)
@@ -195,7 +213,11 @@ def stream_sweep(
     - ``reprioritize``: polled before each dispatch with the undispatched
       item indices; returns a permutation of them (or None) that replaces
       their dispatch order. Incompatible with checkpointing.
-    - ``mesh``: not ported yet (raises ``NotImplementedError``).
+    - ``mesh``: a ``parallel.SeedMesh`` (every rank calls with the same
+      arguments); the pool is sharded over its ranks (``pool_size``
+      rounds up to mesh divisibility) and every rank returns the same
+      totals; ``host_work`` runs on rank 0 only, its verdict broadcast.
+      Its device replaces ``device``.
     - ``device=None`` means CUDA.
     """
     import time as _time
@@ -203,12 +225,7 @@ def stream_sweep(
     from ..models._common import merge_summaries
     from .checkpoint import _sweep_fingerprint, params_digest
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "stream_sweep(mesh=...) waits for the port of parallel/mesh.py "
-            "(ROADMAP queue A item 10)"
-        )
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     tracer = telemetry.tracer if telemetry is not None else None
     seeds_host = core._seed_tensor(seeds, "cpu").numpy()
     n = int(seeds_host.size)
@@ -224,7 +241,27 @@ def stream_sweep(
         )
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    multiple = 1 if mesh is None else mesh.size
     L = min(pool_size if pool_size is not None else chunk_size, n)
+    L = -(-L // multiple) * multiple
+    # the local lanes [lane_lo, lane_lo + lanes_here) of the pool
+    lane_lo, lanes_here = (0, L) if mesh is None else mesh.shard(L)
+
+    def local(a):
+        """This rank's rows of a pool-wide host array."""
+        return a if mesh is None else a[lane_lo:lane_lo + lanes_here]
+
+    def whole(state):
+        """The whole pool's state (gathered over the mesh)."""
+        if mesh is None:
+            return state
+        from ..parallel.mesh import gather_state
+
+        return gather_state(mesh, state)
+    if mesh is not None:
+        from ..parallel.mesh import rank0_host_work
+
+        host_work = rank0_host_work(mesh, host_work)
     if stop_after_rounds is not None and ckpt_path is None:
         raise ValueError("stop_after_rounds requires ckpt_path")
     budgets_host = (
@@ -313,20 +350,30 @@ def stream_sweep(
         refills = int(meta["refills"])
         occ_sum = float(meta["occ_sum"])
         pool_seeds = state.seed.cpu().numpy().copy()
+        if mesh is not None:
+            from ..parallel.mesh import shard_state
+
+            state = shard_state(mesh, state)
     else:
+        t = min(L, n)
         lane_item = np.full(L, -1, np.int64)
-        lane_item[:L] = order[:L]
-        next_q = L
+        lane_item[:t] = order[:t]
+        next_q = t
         # budget 0 freezes an unassigned lane before its first event
         lane_budget = np.zeros(L, np.int32)
-        lane_budget[:L] = budgets_host[order[:L]]
-        pool_seeds = seeds_host[order[:L]].copy()
+        lane_budget[:t] = budgets_host[order[:t]]
+        pool_seeds = np.empty(L, np.int64)
+        pool_seeds[:t] = seeds_host[order[:t]]
+        pool_seeds[t:] = seeds_host[order[0]]
         state = None
     pool_params = (
         None if params_host is None else pool_rows(np.where(lane_item >= 0, lane_item, 0))
     )
     if state is None:
-        state = core.init_sweep(workload, cfg, pool_seeds, device=dev, params=pool_params)
+        state = core.init_sweep(
+            workload, cfg, local(pool_seeds), device=dev,
+            params=None if pool_params is None else tree.map(local, pool_params),
+        )
     # refills write the pool in place: it owns its memory (an init leaf
     # may share a host array's)
     state = tree.map(torch.clone, state)
@@ -479,7 +526,8 @@ def stream_sweep(
 
     def dispatch_free():
         """Assign free lanes from the queue (polling ``feed`` when it runs
-        dry) and re-init them in fixed-width cohorts of ``L // 8``."""
+        dry) and re-init them in fixed-width cohorts of an eighth of the
+        local lanes."""
         nonlocal next_q, refills, state
         if reprioritize is not None and next_q < n:
             tail = order[next_q:].copy()
@@ -514,12 +562,14 @@ def stream_sweep(
             if pool_params is not None:
                 for p, s in zip(tree.leaves(pool_params), tree.leaves(params_host)):
                     p[lanes_t] = s[items_t]
-            w = max(1, L // 8)
-            for off in range(0, take, w):
-                sub = lanes_t[off:off + w]
+            # each rank re-inits its own retired lanes, at their local rows
+            mine = lanes_t[(lanes_t >= lane_lo) & (lanes_t < lane_lo + lanes_here)]
+            w = max(1, lanes_here // 8)
+            for off in range(0, mine.size, w):
+                sub = mine[off:off + w]
                 idx = np.concatenate([sub, np.full(w - sub.size, sub[0], sub.dtype)])
                 state = _refill_rows(
-                    workload, cfg, state, idx, pool_seeds[idx],
+                    workload, cfg, state, idx - lane_lo, pool_seeds[idx],
                     None if pool_params is None else tree.map(lambda a: a[idx], pool_params),
                 )
 
@@ -549,9 +599,9 @@ def stream_sweep(
         # while the queue has work (or a feed may bring some), leave the
         # round once a refill quorum has retired; then drain to the end
         stop = max(assigned - max(1, L // 8), 0) if (next_q < n or feed is not None) else 0
-        budget_dev = torch.as_tensor(lane_budget, device=dev)
+        budget_dev = torch.as_tensor(local(lane_budget), device=dev)
         t_disp = _time.perf_counter()
-        state = _round(workload, cfg, round_steps, state, budget_dev, stop)
+        state = _round(workload, cfg, round_steps, state, budget_dev, stop, mesh)
         rounds += 1
         rounds_this_call += 1
         poll_s = 0.0
@@ -559,8 +609,13 @@ def stream_sweep(
             t_poll = _time.perf_counter()
             absorb(host_work.poll(round_ema))
             poll_s = _time.perf_counter() - t_poll
-        done = state.done.cpu().numpy()
-        ctr = state.ctr.cpu().numpy()
+        if mesh is None:
+            done, ctr = state.done.cpu().numpy(), state.ctr.cpu().numpy()
+        else:
+            from ..parallel.mesh import gather_rows
+
+            done = gather_rows(mesh, state.done).cpu().numpy()
+            ctr = gather_rows(mesh, state.ctr).cpu().numpy()
         if incr:
             dt = max(0.0, _time.perf_counter() - t_disp - poll_s)
             round_ema = dt if round_ema == 0.0 else 0.5 * round_ema + 0.5 * dt
@@ -582,11 +637,13 @@ def stream_sweep(
                                   "(refill quorum latency)")
             # one screen per cohort on the pool state: a suspect bit is a
             # pure per-lane function, so these are a chunk screen's bits
-            susp = None if screen is None else _np(screen(state))
+            pool = whole(state)
+            susp = None if screen is None else _np(screen(pool))
             idx = np.nonzero(retired)[0]
             idx_t = torch.as_tensor(idx, device=dev)
-            capture(lane_item[idx], [_take(leaf, idx_t) for leaf in tree.leaves(state)],
+            capture(lane_item[idx], [_take(leaf, idx_t) for leaf in tree.leaves(pool)],
                     None if susp is None else susp[idx])
+            del pool
             lane_item[idx] = -1
             lane_budget[idx] = 0  # frozen until refilled
             dispatch_free()
@@ -611,8 +668,14 @@ def stream_sweep(
                     pending_rows[lo + int(p)] = [h[p] for h in host]
                     if screen is not None:
                         susp_rows[lo + int(p)] = bool(sus_buf[c][p])
+            pool = whole(state)
+            if mesh is not None and mesh.rank != 0:
+                from ..parallel.mesh import all_sum
+
+                all_sum(mesh, 0)  # rank 0 has written the snapshot
+                break
             save_stream(
-                ckpt_path, state, pending=pending_rows, susp=susp_rows,
+                ckpt_path, pool, pending=pending_rows, susp=susp_rows,
                 meta={
                     "fingerprint": fp,
                     "seeds_sha": seeds_sha,
@@ -629,6 +692,10 @@ def stream_sweep(
                     "occ_sum": float(occ_sum),
                 },
             )
+            if mesh is not None:
+                from ..parallel.mesh import all_sum
+
+                all_sum(mesh, 0)  # the snapshot exists for every rank
             break
 
     if incr:

@@ -314,12 +314,12 @@ def screen_sweep(final, spec, block: int = 1024, mesh=None) -> torch.Tensor:
     """Suspect mask (bool[S], on the state's device) of a finished
     batched sweep, screened in ``block``-lane batches (the bound on the
     ``[block, H, H]`` masks). The mask is not copied to the host: the
-    pipelined driver reads it in the next chunk's host phase."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "screen_sweep(mesh=...) waits for the port of parallel/mesh.py "
-            "(ROADMAP queue A item 10)"
-        )
+    pipelined driver reads it in the next chunk's host phase.
+
+    With ``mesh`` (a ``parallel.SeedMesh``; every rank calls), ``final``
+    is the whole batch as the sharded drivers return it: each rank
+    screens its own shard of the lanes, and the ranks' bits are gathered
+    into the whole mask, equal to the unsharded screen's."""
     fn = screen_for(spec)
     if fn is None:
         raise ValueError(
@@ -327,15 +327,24 @@ def screen_sweep(final, spec, block: int = 1024, mesh=None) -> torch.Tensor:
             "pass screen=False (check every lane) instead"
         )
     rec, t, length = final.hist_rec, final.hist_t, final.hist_len
+    if mesh is not None:
+        lo, m = mesh.shard(int(t.shape[0]))
+        rec, t, length = rec[lo:lo + m], t[lo:lo + m], length[lo:lo + m]
     s, h = t.shape
     if h == 0 or s == 0:
         # no recording plane: nothing to screen, nothing to check
-        return torch.zeros((s,), dtype=torch.bool, device=t.device)
-    widths = _block_widths(length, h, block)
-    return torch.cat([
-        fn(rec[lo:lo + block, :w], t[lo:lo + block, :w], length[lo:lo + block])
-        for lo, w in zip(range(0, s, block), widths)
-    ])
+        mask = torch.zeros((s,), dtype=torch.bool, device=t.device)
+    else:
+        widths = _block_widths(length, h, block)
+        mask = torch.cat([
+            fn(rec[lo:lo + block, :w], t[lo:lo + block, :w], length[lo:lo + block])
+            for lo, w in zip(range(0, s, block), widths)
+        ])
+    if mesh is None:
+        return mask
+    from ..parallel.mesh import gather_rows
+
+    return gather_rows(mesh, mask)
 
 
 class _HostWork:
@@ -602,9 +611,20 @@ def checked_sweep(
     (``stream_sweep(ckpt_path=...)``), so ``ckpt_dir``/``stop_after``/
     ``resume_from`` are refused with it.
 
-    ``mesh=`` and ``chunk_per_device=`` (the mesh route's) are not ported
-    yet and raise ``NotImplementedError``: they wait for
-    ``parallel/mesh.py`` (ROADMAP queue A item 10)."""
+    ``mesh`` (a ``parallel.SeedMesh``; every rank calls with the same
+    arguments) routes the pipeline through the sharded driver
+    (``parallel.run_sweep_sharded_pipelined``): the sweep and the screen
+    run sharded, the host phase (decode, dedup, WGL) once per chunk on
+    rank 0 (so ``workers`` starts one pool, on rank 0), its verdict
+    broadcast, chunks of ``chunk_per_device`` lanes per rank
+    (``core.pick_chunk_size`` when omitted; an explicit ``chunk_size``
+    stays GLOBAL and overrides), and every rank returns the same report,
+    byte-identical across world sizes and to the reference's: counts are
+    exact integer reductions merged in seed order, and the
+    ``hist_violating_seeds`` sample composes — each chunk records at most
+    ``max_recorded`` violators in lane order and the merge is capped to
+    the same bound. With ``driver="stream"`` the lane pool is sharded
+    (``stream_sweep(mesh=)``), its chunk rounded up to mesh divisibility."""
     from ..engine import core
     from ..engine.checkpoint import run_sweep_pipelined
 
@@ -616,11 +636,6 @@ def checked_sweep(
             "engine.stream.stream_sweep(ckpt_path=...) directly for "
             "interrupt/resume"
         )
-    if mesh is not None or chunk_per_device is not None:
-        raise NotImplementedError(
-            "checked_sweep(mesh=..., chunk_per_device=...) waits for the port "
-            "of parallel/mesh.py (ROADMAP queue A item 10)"
-        )
     screen_fn = None
     if screen:
         if screen_for(spec) is None:
@@ -628,23 +643,43 @@ def checked_sweep(
                 f"spec {spec.name!r} has no device screen; pass "
                 "screen=False to check every lane"
             )
-        screen_fn = lambda final: screen_sweep(final, spec)  # noqa: E731
+        screen_fn = lambda final: screen_sweep(final, spec, mesh=mesh)  # noqa: E731
     host_work = history_host_work(
         spec, max_states=max_states, workers=workers,
         max_recorded=max_recorded, telemetry=telemetry,
         device_decode=device_decode,
     )
-    if chunk_size is None:
-        chunk_size = core.pick_chunk_size(workload, cfg)
     if driver == "stream":
         from ..engine.stream import stream_sweep
 
+        if chunk_size is None:
+            if mesh is not None and chunk_per_device is not None:
+                chunk_size = chunk_per_device * mesh.size
+            elif mesh is not None:
+                chunk_size = core.pick_chunk_size(workload, cfg) * mesh.size
+            else:
+                chunk_size = core.pick_chunk_size(workload, cfg)
+        if mesh is not None:
+            chunk_size = -(-chunk_size // mesh.size) * mesh.size
         totals = stream_sweep(
             workload, cfg, seeds, summarize,
             chunk_size=chunk_size, host_work=host_work, screen=screen_fn,
-            on_chunk=on_chunk, telemetry=telemetry, device=device,
+            mesh=mesh, on_chunk=on_chunk, telemetry=telemetry, device=device,
+        )
+    elif mesh is not None:
+        from ..parallel.mesh import run_sweep_sharded_pipelined
+
+        totals = run_sweep_sharded_pipelined(
+            workload, cfg, seeds, summarize,
+            mesh=mesh, host_work=host_work, screen=screen_fn,
+            chunk_per_device=chunk_per_device, chunk_size=chunk_size,
+            ckpt_dir=ckpt_dir, stop_after=stop_after,
+            resume_from=resume_from, on_chunk=on_chunk,
+            telemetry=telemetry,
         )
     else:
+        if chunk_size is None:
+            chunk_size = core.pick_chunk_size(workload, cfg)
         totals = run_sweep_pipelined(
             workload, cfg, seeds, summarize,
             host_work=host_work,

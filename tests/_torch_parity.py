@@ -2,6 +2,9 @@
 the reference's leaves as numpy (typed keys as their key data), exact
 leaf comparison, and reference -> port config conversion."""
 
+import hashlib
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,3 +62,78 @@ def port_ecfg(ecfg):
 def same_spec_pair(**kw):
     """The same FaultSpec in both packages."""
     return rfaults.FaultSpec(**kw), pfaults.FaultSpec(**kw)
+
+
+def same_result(a, b, what):
+    """Exact equality of two world jobs' results (arrays: dtype, shape
+    and values; containers element by element)."""
+    if isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), what
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), what
+        for x, y in zip(a, b):
+            same_result(x, y, what)
+    else:
+        assert a == b, what
+
+
+def worlds():
+    """The body of a module-scoped ``world`` fixture: ``world(n, job,
+    *args)`` runs a job on the module's ``n``-rank gloo world of CPU ranks
+    (``madsim_tpu_torch.parallel.World``, spawned on first use) and
+    returns rank 0's result, every rank's being equal to it."""
+    from madsim_tpu_torch.parallel import World
+
+    spawned = {}
+
+    def run(n, fn, *args):
+        if n not in spawned:
+            spawned[n] = World(n)
+        out = spawned[n].run(fn, *args)
+        for r, o in enumerate(out[1:], 1):
+            same_result(o, out[0], f"rank {r} of {n} returned another result than rank 0")
+        return out[0]
+
+    yield run
+    for w in spawned.values():
+        w.close()
+
+
+def ref_mesh(n):
+    """The reference's seed mesh over ``n`` of the conftest's CPU devices."""
+    import pytest
+
+    from madsim_tpu import parallel as rparallel
+
+    devs = jax.devices("cpu")
+    if len(devs) < n:
+        pytest.skip(f"need {n} cpu devices (XLA_FLAGS force_host_platform_device_count)")
+    return rparallel.seed_mesh(devs[:n])
+
+
+def reference_curve(seeds: int, chunk_per_device: int, counts=(1, 2)) -> dict:
+    """The reference's ``checked_sweep_curve`` of the smoke amnesia gate
+    on as many CPU devices as each world size: per size its report
+    sha256 and (from the unsharded sweep at the same global chunk, whose
+    report hash must be the same) its ``hist_unique``, and its
+    ``bytes_invariant``."""
+    from madsim_tpu.explore import checked_sweep_curve
+    from madsim_tpu.explore.targets import amnesia_gate
+    from madsim_tpu.oracle.screen import checked_sweep
+
+    target, base = amnesia_gate(smoke=True)
+    curve = checked_sweep_curve(target, base, device_counts=counts, seeds_total=seeds,
+                                chunk_per_device=chunk_per_device,
+                                devices=jax.devices("cpu")[:max(counts)])
+    workload, ecfg = target.build(base)
+    shas, unique = {}, {}
+    for p in curve["curve"]:
+        n = p["devices"]
+        totals = checked_sweep(workload, ecfg, np.arange(seeds, dtype=np.int64),
+                               target.hist_spec, target.summarize,
+                               chunk_size=chunk_per_device * n)
+        sha = hashlib.sha256(json.dumps(totals, sort_keys=True).encode()).hexdigest()
+        assert sha == p["report_sha256"], f"unsharded != sharded at {n} devices"
+        shas[str(n)], unique[str(n)] = sha, totals["hist_unique"]
+    return {"report_sha256": shas, "hist_unique": unique,
+            "bytes_invariant": curve["bytes_invariant"]}

@@ -113,10 +113,15 @@ def test_violating_seeds_equal():
 def test_routes_not_ported_yet_refuse():
     _rcfg, _ecfg, pcfg, pecfg = _etcd(False)
     args = (petcd.workload(pcfg), pecfg, SEEDS[:4], petcd.history_spec(), petcd.sweep_summary)
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        pscreen.checked_sweep(*args, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        pscreen.checked_sweep(*args, chunk_per_device=2, device="cpu")
+    # the mesh route is ported: on a one-rank mesh chunk_per_device is the
+    # chunk, and the report is the unsharded one (tests/test_torch_mesh_checked.py
+    # runs more ranks); without a mesh chunk_per_device is ignored, as in
+    # the reference
+    from madsim_tpu_torch.parallel import seed_mesh
+
+    plain = pscreen.checked_sweep(*args, chunk_size=2, device="cpu")
+    assert pscreen.checked_sweep(*args, mesh=seed_mesh(device="cpu"), chunk_per_device=2) == plain
+    assert pscreen.checked_sweep(*args, chunk_size=2, chunk_per_device=3, device="cpu") == plain
     # the stream driver is ported; it keeps its own snapshots
     with pytest.raises(ValueError, match="own snapshots"):
         pscreen.checked_sweep(*args, driver="stream", ckpt_dir="unused", device="cpu")

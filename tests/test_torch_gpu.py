@@ -301,3 +301,27 @@ def test_count_compiles_counts_a_kernel_load_on_the_card():
     with compiles.count_compiles() as c:
         cuda_queue.build()
     assert c.count == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_sharded_sweep_on_the_card_equals_the_cpu(ranks):
+    """``run_sweep_sharded`` on ranks on the card (one rank: NCCL; two
+    sharing a card: gloo) equals the CPU port's unsharded sweep on every
+    leaf, with every step through the pop-min kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import _torch_mesh_jobs as jobs
+    from madsim_tpu_torch.engine import core, tree
+    from madsim_tpu_torch.parallel import World
+
+    with World(ranks, device="cuda") as world:
+        assert world.backend == ("nccl" if ranks <= torch.cuda.device_count() else "gloo")
+        out = world.run(jobs.counted_sweep_leaves, "etcd_stale", 64)
+    wl, ecfg, _ = jobs.port_case("etcd_stale")
+    want = [a.numpy() for a in tree.leaves(core.run_sweep(wl, ecfg, np.arange(64), device="cpu"))]
+    for leaves, calls, launches in out:
+        assert calls > 0 and launches == calls
+        assert len(leaves) == len(want)
+        for got, ref in zip(leaves, want):
+            assert got.dtype == ref.dtype and np.array_equal(got, ref)

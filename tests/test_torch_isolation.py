@@ -43,6 +43,17 @@ MODULES = [
     "madsim_tpu_torch.models.s3",
     "madsim_tpu_torch.models",
     "madsim_tpu_torch.bench_megakernel",
+    "madsim_tpu_torch.parallel",
+    "madsim_tpu_torch.parallel.mesh",
+    "madsim_tpu_torch.parallel.world",
+    "madsim_tpu_torch.replay",
+    "madsim_tpu_torch.explore",
+    "madsim_tpu_torch.explore.targets",
+    "madsim_tpu_torch.explore.triage",
+    "madsim_tpu_torch.explore.shrink",
+    "madsim_tpu_torch.explore.campaign",
+    "madsim_tpu_torch.explore.fleet",
+    "madsim_tpu_torch.entry",
 ]
 
 
@@ -126,7 +137,10 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
     from madsim_tpu_torch.engine import checkpoint, stream
     from madsim_tpu_torch.oracle import screen
 
+    from madsim_tpu_torch import entry, explore, parallel
+
     spec = raft.history_spec()
+    target, base = explore.amnesia_gate(smoke=True)
     for call in (
         lambda: checkpoint.run_sweep_pipelined(wl, ecfg, np.arange(4), raft.sweep_summary),
         lambda: stream.stream_sweep(wl, ecfg, np.arange(4), raft.sweep_summary, chunk_size=2),
@@ -140,6 +154,12 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
         lambda: core.run_traced(wl, ecfg, 1),
         lambda: core.step_batch(wl, ecfg, core.init_sweep(wl, ecfg, [1], device="cpu")),
         lambda: core.run_sweep(wl, ecfg, np.arange(4), device="cuda"),
+        lambda: parallel.run_sweep_sharded(wl, ecfg, np.arange(4)),
+        lambda: parallel.seed_mesh(),
+        lambda: explore.run_campaign(target, base, explore.CampaignConfig(
+            rounds=1, seeds_per_round=4, chunk_size=4)),
+        lambda: explore.triage_seed(target, base, 0),
+        lambda: entry.entry(),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -220,5 +220,13 @@ def test_screen_for_and_refusals():
                     np.zeros(2, np.int32), torch.from_numpy)
     with pytest.raises(ValueError, match="no device screen"):
         pscreen.screen_sweep(planes, pspecs.S3Spec())
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        pscreen.screen_sweep(planes, pspecs.KVSpec(), mesh=object())
+    # mesh=: a one-rank mesh screens like no mesh; a mesh whose size does
+    # not divide the lanes is refused (tests/test_torch_mesh.py runs the
+    # multi-rank screens)
+    from madsim_tpu_torch.parallel import SeedMesh, seed_mesh
+
+    assert torch.equal(pscreen.screen_sweep(planes, pspecs.KVSpec(), mesh=seed_mesh(device="cpu")),
+                       pscreen.screen_sweep(planes, pspecs.KVSpec()))
+    with pytest.raises(ValueError, match="divide"):
+        pscreen.screen_sweep(planes, pspecs.KVSpec(),
+                             mesh=SeedMesh(None, 0, 3, torch.device("cpu"), ""))

@@ -301,8 +301,11 @@ def test_checked_sweep_stream_driver_report_bytes_equal():
 
 
 def test_mesh_and_the_default_device():
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        _port_stream("raft", mesh=object())
+    # a one-rank mesh streams like no mesh (tests/test_torch_mesh_checked.py
+    # runs the multi-rank route)
+    from madsim_tpu_torch.parallel import seed_mesh
+
+    assert _port_stream("raft", mesh=seed_mesh(device="cpu")) == _port_stream("raft")
     if not torch.cuda.is_available():
         *_, pwl, pecfg, psum = _case("raft")
         with pytest.raises(RuntimeError, match="CUDA"):
