@@ -111,17 +111,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     seeds_per_round=8192, chunk_size=4096)`` on 2 ranks, its JSONL
     report's sha256 equal to the JAX-made golden
     ``madsim_tpu_torch/data/campaign_amnesia.json``; rounds, seeds/s,
-    events/s, violations, distinct failures and time to first bug.
+    events/s, violations, distinct failures and time to first bug;
+16. the rest of explore on the card: (a) the steered campaign
+    (``run_campaign(scheduler="bandit")``, bench.py's steering cell, raft
+    arm, at 4,096 seeds per round and an 11,520,000-event budget, two
+    violating seeds triaged per decision), its
+    JSONL report's and decision trace's sha256 and its fingerprints
+    equal to the JAX-made ``steer_raft.json``; decisions, kills,
+    escalations, fingerprints, coverage bits, events to first bug, seeds
+    and events swept and their rates, and the triage replays' count and
+    seconds; (b) the fleet drill (``scripts/fleet_smoke.py``'s config
+    over units 0-1): one ``run_worker`` and, beside it, two worker
+    processes on the card with ``max_units=1`` into a second store, both
+    merged reports equal to each other and to ``fleet_drill.json``, the
+    shrinks' count, replays and seconds; and
+    ``regression_gate`` over the JAX package's store of that drill
+    (``data/fleet_store``); (c) ``run_differential(gate_specs())`` at
+    ``DifferentialConfig()``, the host tier's outcomes read from
+    ``differential_host.json``, its report bytes equal to the JAX-made
+    one, and ``device_outcomes_grid`` at 4,096 seeds per spec (16,384
+    lanes) equal to ``differential_device.json``. Every run of phase 16
+    replays seeds one lane at a time inside it (triage, shrink, the
+    gate), so its launches are held to every engine step: the
+    ``step_batch`` calls plus the replays' steps.
 
-Phases 10-15 print their wall seconds, seeds/s, events/s and peak device
+Phases 10-16 print their wall seconds, seeds/s, events/s and peak device
 memory, and each zeroes pop_min's launch count before every driven run
-and checks it equals the ``step_batch`` calls. Every phase's seconds are
-printed. After the phases, both kernels' ``torch.profiler`` durations,
-from one profiler session, are printed beside their CUDA-graph times.
-The line before the last is ``{"kernels": [...]}`` (pop_min's launches
-summed over phases 3 and 8-15 and, in 14-15, over the ranks; its Q = 48
-times beside the Q = 64 ones);
-the last is ``{"ok": true, "device": {...}}``.
+and checks it equals the engine steps (the ``step_batch`` calls, and in
+16 the replays' steps too). Every phase's seconds are printed. After the
+phases, both kernels' ``torch.profiler`` durations, from one profiler
+session, are printed beside their CUDA-graph times. The line before the
+last is ``{"kernels": [...]}`` (pop_min's launches summed over phases 3
+and 8-16, in 14-15 over the ranks and in 16 over the fleet's worker
+processes; its Q = 48 times beside the Q = 64 ones); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -249,6 +272,41 @@ MESH_FLAGSHIP_SEEDS = PARITY_SEEDS
 CURVE_RUNS = ((2_048, 1_024, None), (64, 32, 0))
 CAMPAIGN_RUNS = ((2, 8_192, 4_096), (2, 32, 32))
 CAMPAIGN_WORLD = 2
+# phase 16 (a), the steered campaign: bench.py's steering cell, raft arm
+# (bench.py:122-138, :942-957), its families, escalation, kill rule and
+# campaign seed; (seeds per round, event budget, recorded seeds per
+# decision) of the card's run — the cell's seed granule (16) and event
+# budget (45,000) both scaled x256 — then of the CPU rehearsal's. The
+# cell records 8 violating seeds a decision; each is triaged by a
+# one-lane replay, 4.97 s apiece on the card (32 replays took 159 s of
+# the campaign's 235 s), so the card's run records 2
+STEER_FAMILIES = (0x001, 0x002, 0x003, 0x004, 0x008,
+                  0x010, 0x020, 0x040, 0x080, 0x100)
+STEER_ESCALATE_SEEDS = 8
+STEER_KILL_PLAYS = 1
+STEER_CAMPAIGN_SEED = 7
+STEER_RUNS = ((4_096, 11_520_000, 2), (16, 6_000, 2))
+STEER_GOLDEN = "steer_raft.json"
+# phase 16 (b), the fleet drill: scripts/fleet_smoke.py's pinned config
+# (:46-53) over units 0-1 of its 4-unit plan, which reach fingerprint n0
+# only; (seeds per round = chunk, recorded seeds, shrink replays) of the
+# card's run, then of the rehearsal's. The regression gate replays the
+# JAX package's store of the card's drill, kept under data/
+FLEET_UNITS = 2
+FLEET_TARGET = {"time_limit_ns": 1_500_000_000, "max_steps": 15_000, "hist_slots": 0}
+FLEET_BASE = {"crashes": 3, "crash_window_ns": 1_200_000_000,
+              "restart_lo_ns": 50_000_000, "restart_hi_ns": 300_000_000}
+FLEET_CAMPAIGN = {"batch": 2, "campaign_seed": 7}
+FLEET_RUNS = ((24, 4, 24), (8, 1, 2))
+FLEET_GOLDEN = "fleet_drill.json"
+FLEET_STORE = "fleet_store"
+# phase 16 (c), the differential: run_differential over gate_specs() at
+# DifferentialConfig(seeds, sim_seconds) (the card's run is the config's
+# defaults, the host tier's outcomes read from differential_host.json),
+# then the device grid alone at card width; card, then rehearsal
+DIFF_RUNS = ((200, 2.0), (16, 1.0))
+DIFF_GRID_RUNS = ((4_096, 2.0), (16, 1.0))
+DIFF_GOLDEN = "differential_device.json"
 
 
 def log(msg: str) -> None:
@@ -336,22 +394,34 @@ def profiled_kernels_ms(calls) -> dict:
 
 
 def main_path_run(dev, fn):
-    """Run ``fn()`` as a driven main path: ``core.step_batch`` calls are
-    counted and pop_min's launch count is zeroed just before and read
-    just after; returns ``(result, step_batch calls, launches, wall s)``.
-    On the card every call must have launched the kernel once."""
+    """Run ``fn()`` as a driven main path (``engine_steps_run``); returns
+    ``(result, step_batch calls, launches, wall s)``."""
+    r = engine_steps_run(dev, fn)
+    return r["out"], r["calls"], r["launches"], r["wall"]
+
+
+def engine_steps_run(dev, fn) -> dict:
+    """Run ``fn()`` as a driven path: every engine step is counted, the
+    ``step_batch`` calls and the steps of one-lane replays
+    (``core.run_traced`` steps the engine without ``step_batch``) apart,
+    and pop_min's launch count is zeroed just before and read just after.
+    On the card every step must have launched the kernel once."""
     import torch
 
     from madsim_tpu_torch.engine import core, cuda_queue
 
-    calls = [0]
-    step_batch = core.step_batch
+    calls, steps = [0], [0]
+    step_batch, step = core.step_batch, core._step
 
-    def counted(*args, **kwargs):
+    def counted_batch(*args, **kwargs):
         calls[0] += 1
         return step_batch(*args, **kwargs)
 
-    core.step_batch = counted
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    core.step_batch, core._step = counted_batch, counted_step
     try:
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -363,13 +433,13 @@ def main_path_run(dev, fn):
         wall = time.perf_counter() - t0
         launches = cuda_queue.pop_min_decision.launches
     finally:
-        core.step_batch = step_batch
-    if dev.type == "cuda" and launches != calls[0]:
+        core.step_batch, core._step = step_batch, step
+    if dev.type == "cuda" and launches != steps[0]:
         raise SystemExit(
-            f"pop_min launches ({launches}) != step_batch calls ({calls[0]}): "
-            "the main path did not go through the kernel on every event"
-        )
-    return out, calls[0], launches, wall
+            f"pop_min launches ({launches}) != engine steps ({steps[0]}: {calls[0]} step_batch "
+            "calls and the replays' steps): the path did not go through the kernel on every event")
+    return {"out": out, "calls": calls[0], "replay_steps": steps[0] - calls[0],
+            "launches": launches, "wall": wall, "peak": _peak(dev)}
 
 
 def flagship():
@@ -1533,6 +1603,336 @@ def phase_campaign(dev, curve=CURVE_RUNS[0], run=CAMPAIGN_RUNS[0],
     return out
 
 
+# phase 16's configs, built in either package (``explore`` and
+# ``FaultSpec`` are the port's or, to make the goldens, the reference's)
+
+
+def steer_configs(explore, run):
+    """The steered campaign's ``(CampaignConfig, SteerConfig)``."""
+    spr, budget, recorded = run
+    ccfg = explore.CampaignConfig(rounds=999, seeds_per_round=spr,
+                                  campaign_seed=STEER_CAMPAIGN_SEED,
+                                  max_recorded_seeds=recorded, scheduler="bandit")
+    scfg = explore.SteerConfig(families=STEER_FAMILIES, escalate_seeds=STEER_ESCALATE_SEEDS,
+                               kill_plays=STEER_KILL_PLAYS, budget_events=budget)
+    return ccfg, scfg
+
+
+def steer_key(run) -> str:
+    return "seeds_per_round={} budget_events={} max_recorded_seeds={}".format(*run)
+
+
+def fleet_setup(explore, fault_spec, run):
+    """The fleet drill's ``(target, base spec, CampaignConfig)``."""
+    spr, recorded, _ = run
+    ccfg = explore.CampaignConfig(seeds_per_round=spr, chunk_size=spr,
+                                  max_recorded_seeds=recorded, **FLEET_CAMPAIGN)
+    return explore.amnesia_raft_target(**FLEET_TARGET), fault_spec(**FLEET_BASE), ccfg
+
+
+def fleet_key(run) -> str:
+    return "seeds_per_round={} max_recorded_seeds={} shrink_tests={}".format(*run)
+
+
+def diff_config(explore, run):
+    return explore.DifferentialConfig(seeds=run[0], sim_seconds=run[1])
+
+
+def diff_key(run) -> str:
+    return "seeds={} sim_seconds={}".format(*run)
+
+
+def _build_dir() -> str:
+    build = os.path.join(HERE, "madsim_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    return build
+
+
+@contextlib.contextmanager
+def _timed_calls(module, name: str):
+    """Count the calls of ``module.name``, their seconds and what they
+    returned while the block runs (a dict ``{"calls", "seconds",
+    "returned"}``)."""
+    fn = getattr(module, name)
+    box = {"calls": 0, "seconds": 0.0, "returned": []}
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            box["calls"] += 1
+            box["seconds"] += time.perf_counter() - t
+        box["returned"].append(out)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield box
+    finally:
+        setattr(module, name, fn)
+
+
+def _steps_line(r: dict) -> str:
+    return (f"pop_min launches {r['launches']} = engine steps {r['calls'] + r['replay_steps']} "
+            f"({r['calls']} step_batch calls + {r['replay_steps']} one-lane replay steps), "
+            f"wall {r['wall']:.6f} s, peak device memory {r['peak']} B")
+
+
+def phase_steer(dev, run=STEER_RUNS[0]) -> dict:
+    """Phase 16 (a): the steered campaign (``run_steered`` through
+    ``run_campaign``'s ``scheduler="bandit"`` route) of the raft steer
+    gate; its JSONL report and decision trace against the JAX-made
+    golden's sha256s, and its fingerprints; the triage replays timed."""
+    import hashlib
+
+    from madsim_tpu_torch import explore
+
+    # the module (the package's ``triage`` is the function of that name)
+    triage = sys.modules["madsim_tpu_torch.explore.triage"]
+    golden = load_golden(STEER_GOLDEN)["runs"][steer_key(run)]
+    target, base = explore.steer_gate(smoke=True)
+    ccfg, scfg = steer_configs(explore, run)
+    build = _build_dir()
+    paths = [os.path.join(build, f"phase16_steer_{what}.jsonl") for what in ("report", "trace")]
+    _peak_reset(dev)
+    with _timed_calls(triage, "triage_seed") as replays:
+        r = engine_steps_run(dev, lambda: explore.run_campaign(
+            target, base, ccfg, steer_cfg=scfg, report_path=paths[0], trace_path=paths[1],
+            device=dev))
+    blobs = []
+    for path in paths:
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+        os.remove(path)
+    shas = [hashlib.sha256(b).hexdigest() for b in blobs]
+    if shas != [golden["report_sha256"], golden["trace_sha256"]]:
+        raise SystemExit(f"steered campaign ({steer_key(run)}): report/trace sha256 {shas} != "
+                         f"golden {[golden['report_sha256'], golden['trace_sha256']]}:\n"
+                         f"{blobs[0].decode()[:2000]}")
+    lines = [json.loads(line) for line in blobs[0].decode().splitlines()[1:]]
+    trace = [json.loads(line) for line in blobs[1].decode().splitlines()[1:]]
+    fps = sorted({fp for rec in lines for fp in rec["fresh_fingerprints"]})
+    if fps != golden["fingerprints"]:
+        raise SystemExit(f"steered campaign fingerprints {fps} != golden {golden['fingerprints']}")
+    kinds = [d["kind"] for d in trace]
+    seeds = sum(rec["seeds"][1] - rec["seeds"][0] for rec in lines)
+    events = sum(rec["events_total"] for rec in lines)
+    spent, first_bug = 0, None
+    for rec in lines:
+        spent += rec["events_total"]
+        if rec["violations"] > 0:
+            first_bug = spent
+            break
+    bits = max((rec["coverage_total_bits"] for rec in lines), default=0)
+    log(f"steered campaign ({steer_key(run)}) on {dev.type}: {kinds.count('decide')} decisions, "
+        f"{kinds.count('kill')} kills, {kinds.count('escalate')} escalations; {len(fps)} distinct "
+        f"fingerprints {fps}, {bits} coverage bits; events to first bug {first_bug}, "
+        f"{events} events spent, {seeds} seeds swept; {seeds / r['wall']:.3f} seeds/s, "
+        f"{events / r['wall']:.3f} events/s; {_steps_line(r)}; triage replays "
+        f"{replays['calls']} in {replays['seconds']:.6f} s"
+        + (f" ({replays['seconds'] / replays['calls']:.6f} s each)" if replays["calls"] else "")
+        + "; report and trace sha256 = golden")
+    replays.pop("returned")
+    return {"launches": r["launches"], "steps": r["calls"] + r["replay_steps"],
+            "decisions": kinds.count("decide"), "fingerprints": fps, "wall": r["wall"],
+            "replays": replays}
+
+
+def fleet_worker_run(device: str, root: str, name: str, run, max_units=None) -> dict:
+    """One fleet worker of phase 16 (b) on ``device``: ``run_worker`` into
+    the store at ``root``, its engine steps, triage replays and shrinks
+    counted."""
+    import torch
+
+    from madsim_tpu_torch import explore
+    from madsim_tpu_torch.engine.faults import FaultSpec
+    from madsim_tpu_torch.explore import orchestrator
+
+    dev = torch.device(device)
+    target, base, ccfg = fleet_setup(explore, FaultSpec, run)
+    store = explore.CorpusStore(root, worker=name)
+    _peak_reset(dev)
+    with _timed_calls(orchestrator, "triage_seed") as triaged, \
+            _timed_calls(orchestrator, "shrink") as shrunk:
+        r = engine_steps_run(dev, lambda: explore.run_worker(
+            target, base, ccfg, store, FLEET_UNITS, max_units=max_units,
+            shrink_tests=run[2], device=dev))
+    res = r.pop("out")
+    # a shrink replays the seed once to triage it, once to extract its
+    # schedule, then once per ddmin candidate (ShrinkResult.tests)
+    shrunk["replays"] = sum(2 + (0 if sr is None else sr.tests) for sr in shrunk.pop("returned"))
+    triaged.pop("returned")
+    return dict(r, units=res["units"], fingerprints=res["fingerprints"], triage=triaged,
+                shrink=shrunk)
+
+
+def _fleet_worker(device: str, root: str, name: str, run, max_units, results) -> None:
+    """A fleet worker process of phase 16 (b)'s pair."""
+    import traceback
+
+    try:
+        results.put((name, "ok", fleet_worker_run(device, root, name, run, max_units)))
+    except (Exception, SystemExit):
+        results.put((name, "error", traceback.format_exc()))
+
+
+def _fleet_pair(device: str, root: str, run, timeout_s: float = 1200.0) -> list:
+    """Two worker processes on ``device`` splitting the drill's units
+    (``max_units=1`` each), started together like fleet_smoke's."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_fleet_worker, args=(device, root, f"w{i}", run, 1, results))
+             for i in range(2)]
+    for p in procs:
+        p.start()
+    out, deadline = {}, time.monotonic() + timeout_s
+    try:
+        while len(out) < len(procs):
+            try:
+                name, kind, value = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.name for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise SystemExit(f"fleet pair: worker(s) {dead} died or timed out")
+                continue
+            if kind == "error":
+                raise SystemExit(f"fleet worker {name} failed:\n{value}")
+            out[name] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [out[f"w{i}"] for i in range(len(procs))]
+
+
+def phase_fleet(dev, run=FLEET_RUNS[0]) -> dict:
+    """Phase 16 (b): the fleet drill — one worker, then a pair of worker
+    processes on the same device, each merged report equal to the other
+    and to the JAX-made golden; then ``regression_gate`` over the JAX
+    package's own store of the card's drill."""
+    import shutil
+
+    from madsim_tpu_torch import explore
+
+    golden = load_golden(FLEET_GOLDEN)["runs"][fleet_key(run)]
+    build = _build_dir()
+    roots = [os.path.join(build, f"phase16_fleet_{what}") for what in ("solo", "pair", "gate")]
+    for root in roots:
+        shutil.rmtree(root, ignore_errors=True)
+    # the pair runs in its own processes beside the solo worker (two
+    # stores; each process host-paced on its own core)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        pair_job = pool.submit(_fleet_pair, dev.type, roots[1], run)
+        solo = fleet_worker_run(dev.type, roots[0], "solo", run)
+        pair = pair_job.result()
+    both_wall = time.perf_counter() - t0
+    reports = [explore.merged_report(explore.CorpusStore(root, worker="report"))
+               for root in roots[:2]]
+    if reports[0] != reports[1] or reports[0] != golden["report"]:
+        raise SystemExit(f"fleet merged reports differ (solo = pair: {reports[0] == reports[1]}; "
+                         f"solo = golden: {reports[0] == golden['report']}):\n{reports[0][:2000]}")
+    if sorted(u for w in pair for u in w["units"]) != list(range(FLEET_UNITS)):
+        raise SystemExit(f"fleet pair leased {[w['units'] for w in pair]}")
+    launches = solo["launches"] + sum(w["launches"] for w in pair)
+    steps = sum(w["calls"] + w["replay_steps"] for w in [solo] + pair)
+    for what, w in [("solo worker", solo)] + [(f"pair worker {i}", w) for i, w in enumerate(pair)]:
+        log(f"fleet ({fleet_key(run)}) {what} on {dev.type}: units {w['units']}, fingerprints "
+            f"{w['fingerprints']}; {_steps_line(w)}; triage replays {w['triage']['calls']} in "
+            f"{w['triage']['seconds']:.6f} s; shrinks {w['shrink']['calls']} ("
+            f"{w['shrink']['replays']} replays) in {w['shrink']['seconds']:.6f} s")
+    log(f"fleet: the solo worker and the pair's processes, side by side, in {both_wall:.6f} s "
+        "(the pair's spawn included); merged report = solo's = golden")
+
+    from madsim_tpu_torch.engine.faults import FaultSpec
+
+    shutil.copytree(data_path(FLEET_STORE), roots[2])
+    target, _, _ = fleet_setup(explore, FaultSpec, run)
+    _peak_reset(dev)
+    with _timed_calls(explore.orchestrator, "triage_seed") as replays:
+        r = engine_steps_run(dev, lambda: explore.regression_gate(
+            explore.CorpusStore(roots[2], worker="gate"), target, device=dev))
+    gate = r["out"]
+    if not gate["ok"] or gate["checked"] < 1:
+        raise SystemExit(f"regression gate over the JAX package's store: {gate}")
+    log(f"regression gate over the JAX package's store on {dev.type}: {gate['checked']} checked, "
+        f"{gate['skipped']} skipped, ok; {replays['calls']} triage replays in "
+        f"{replays['seconds']:.6f} s; {_steps_line(r)}")
+    for root in roots:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches + r["launches"], "steps": steps + r["calls"] + r["replay_steps"],
+            "solo": solo, "pair": pair, "gate": gate}
+
+
+def phase_differential(dev, run=DIFF_RUNS[0], grid=DIFF_GRID_RUNS[0]) -> dict:
+    """Phase 16 (c): ``run_differential`` over ``gate_specs()`` (the host
+    tier's outcomes read from data), its report bytes against the
+    JAX-made report; then ``device_outcomes_grid`` at card width against
+    the JAX-made ``TierOutcome``s. The host-side decode and check of
+    every lane (``_fold_device``) is timed apart, inside the wall."""
+    from madsim_tpu_torch import explore
+    from madsim_tpu_torch.explore import differential
+
+    golden = load_golden(DIFF_GOLDEN)
+    specs = differential.gate_specs()
+    out = {"launches": 0, "steps": 0}
+    for what, cfg_run in (("run_differential", run), ("device_outcomes_grid", grid)):
+        dcfg = diff_config(explore, cfg_run)
+        fold = {"calls": 0, "seconds": 0.0, "events": 0}
+        inner = differential._fold_device
+
+        def timed_fold(final, cfg):
+            t = time.perf_counter()
+            res = inner(final, cfg)
+            fold["seconds"] += time.perf_counter() - t
+            fold["calls"] += 1
+            fold["events"] += int(final.ctr.sum())
+            return res
+
+        differential._fold_device = timed_fold
+        _peak_reset(dev)
+        try:
+            if what == "run_differential":
+                r = engine_steps_run(dev, lambda: differential.run_differential(
+                    specs, dcfg, device=dev))
+                got = json.dumps(r["out"], sort_keys=True) + "\n"
+                want = golden["reports"][diff_key(cfg_run)]
+            else:
+                r = engine_steps_run(dev, lambda: differential.device_outcomes_grid(
+                    specs, dcfg, device=dev))
+                got = [o._asdict() for o in r["out"]]
+                want = golden["grids"][diff_key(cfg_run)]
+        finally:
+            differential._fold_device = inner
+        if got != want:
+            raise SystemExit(f"{what} ({diff_key(cfg_run)}) != the JAX-made golden: {got}")
+        seeds = len(specs) * dcfg.seeds
+        log(f"{what} ({diff_key(cfg_run)}, {len(specs)} specs) on {dev.type}: {seeds} lanes, "
+            f"{seeds / r['wall']:.3f} seeds/s, {fold['events'] / r['wall']:.3f} events/s "
+            f"({fold['events']} events); host decode and check of every lane "
+            f"{fold['seconds']:.6f} s of the wall; {_steps_line(r)}; = golden")
+        out["launches"] += r["launches"]
+        out["steps"] += r["calls"] + r["replay_steps"]
+        out[what] = r["wall"]
+    return out
+
+
+def phase_explore(dev, steer=STEER_RUNS[0], fleet=FLEET_RUNS[0], diff=DIFF_RUNS[0],
+                  grid=DIFF_GRID_RUNS[0]) -> dict:
+    """Phase 16: the steered campaign (a), the fleet drill (b) and the
+    differential (c); launches summed over all three."""
+    parts = {"steer": phase_steer(dev, steer), "fleet": phase_fleet(dev, fleet),
+             "differential": phase_differential(dev, diff, grid)}
+    return dict(parts, launches=sum(p["launches"] for p in parts.values()),
+                steps=sum(p["steps"] for p in parts.values()))
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock from nvidia-smi (the issue ceiling's clock)."""
     out = subprocess.run(
@@ -1602,14 +2002,15 @@ def main() -> int:
     torch.cuda.empty_cache()  # the ranks of phases 14-15 share the card
     meshed = timed(14, phase_mesh, dev)
     campaigned = timed(15, phase_campaign, dev)
+    explored = timed(16, phase_explore, dev)
     per_phase = {3: launches, 8: grid["launches"], 9: checked["launches"],
                  10: kafka_out["launches"], 11: s3_out["launches"],
                  12: kafka_checked["launches"], 13: streamed["launches"],
-                 14: meshed["launches"], 15: campaigned["launches"]}
+                 14: meshed["launches"], 15: campaigned["launches"], 16: explored["launches"]}
     launches = sum(per_phase.values())
-    log(f"pop_min launches per phase (each = its step_batch calls, summed over the ranks "
-        f"in 14-15): {json.dumps(per_phase)}; "
-        f"total {launches}")
+    log(f"pop_min launches per phase (each = its engine steps: step_batch calls, summed over "
+        f"the ranks in 14-15 and the workers in 16, and in 16 the one-lane replays' steps): "
+        f"{json.dumps(per_phase)}; total {launches}")
     log(f"phase seconds: {json.dumps({p: round(t, 3) for p, t in seconds.items()})}")
     profiled = profiled_kernels_ms([("pop_min_kernel", k["launch"], 50),
                                     ("megasweep_kernel", mega["launch"], 5)])

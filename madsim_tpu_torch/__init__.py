@@ -12,8 +12,10 @@ megasweep CUDA kernels), ``models/`` (raft, etcd, kafka, s3), ``oracle/``
 device screens behind ``checked_sweep``), ``parallel/`` (the seed mesh:
 sharded sweeps over ``torch.distributed`` ranks, and ``World``, which
 spawns them), ``explore/`` (the coverage-guided campaign loop: targets,
-triage, shrink, campaign, fleet), ``replay`` (its host helpers) and
-``entry`` (a one-step check and the multi-rank dry run).
+triage, shrink, campaign, fleet, the steered scheduler, the fleet store
+and orchestrator, and the device half of the host↔device differential),
+``replay`` (its host helpers) and ``entry`` (a one-step check and the
+multi-rank dry run).
 
 Every entry point takes ``device=None``; ``None`` means CUDA and raises
 when no GPU is present — it never falls back to the CPU. Pass

@@ -11,10 +11,20 @@
   literal that still reproduces the same fingerprint, plus campaign-window
   narrowing;
 - ``targets`` — the model adapters a campaign explores;
-- ``fleet`` — world-size curves and campaigns over ``parallel``'s ranks.
-
-The reference's ``differential``, ``orchestrator``, ``steer`` and
-``store`` (and ``scheduler="bandit"``) are not ported yet.
+- ``fleet`` — world-size curves and campaigns over ``parallel``'s ranks;
+- ``store`` / ``orchestrator`` — the crash-safe fleet tier: a shared
+  byte-deterministic corpus/bug store (sha-guarded append-only logs,
+  quarantine, expiring leases, the reference's on-disk format) and the
+  leased-unit worker loop feeding ``stream_sweep`` in flight, with the
+  regression-replay gate;
+- ``steer`` — the self-steering scheduler: candidate families, a
+  deterministic UCB bandit over novel-coverage-bits-per-event,
+  early-kill and budget escalation, every decision in a byte-reproducible
+  trace (``CampaignConfig.scheduler="bandit"``);
+- ``differential`` — host↔device differential validation: the device
+  raft model's outcomes over a matched ``(spec, seed)`` grid against the
+  host tier's (made by the JAX package and read as data), both checked
+  against one sequential spec.
 """
 
 from .campaign import (  # noqa: F401
@@ -28,6 +38,35 @@ from .campaign import (  # noqa: F401
     target_envelope,
 )
 from .fleet import checked_sweep_curve, sharded_campaign  # noqa: F401
+from .orchestrator import (  # noqa: F401
+    merged_report,
+    plan_unit,
+    regression_gate,
+    run_worker,
+    write_merged,
+)
+from .steer import (  # noqa: F401
+    BanditScheduler,
+    SteerConfig,
+    SteerResult,
+    family_candidate,
+    family_key,
+    family_of,
+    family_universe,
+    fold_family_stats,
+    plan_unit_steered,
+    run_steered,
+)
+from .store import CorpusStore, Lease, ReadStats  # noqa: F401
+from .differential import (  # noqa: F401
+    DifferentialConfig,
+    TierOutcome,
+    device_outcomes,
+    device_outcomes_grid,
+    gate_specs,
+    host_outcomes,
+    run_differential,
+)
 from .shrink import ShrinkResult, narrow_windows, shrink  # noqa: F401
 from .targets import (  # noqa: F401
     Target,

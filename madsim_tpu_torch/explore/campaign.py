@@ -28,7 +28,8 @@ seed produce byte-identical reports, equal to the reference's bytes for
 the same inputs on any world size.
 
 Every sweep runs on ``device`` (None means CUDA), or on ``mesh``'s ranks.
-The self-steering scheduler (``scheduler="bandit"``) is not ported yet.
+``scheduler="bandit"`` hands the loop to the self-steering scheduler
+(``explore.steer.run_steered``).
 """
 
 from __future__ import annotations
@@ -118,8 +119,9 @@ class CampaignConfig(NamedTuple):
     # semantics the byte-identity gates pin
     batch: int = 1
     # compute-allocation policy: "uniform" is this module's classic
-    # corpus loop; "bandit" is the reference's self-steering scheduler
-    # (madsim_tpu/explore/steer.py), not ported yet: it raises
+    # corpus loop; "bandit" routes run_campaign to the self-steering
+    # scheduler (explore/steer.py: family-partitioned candidates, UCB
+    # allocation, early-kill and escalation over one stream_sweep)
     scheduler: str = "uniform"
 
 
@@ -484,19 +486,27 @@ def run_campaign(
     time-to-first-bug, and one journal record per round. Strictly
     out of band — the report bytes are identical with it on or off.
 
-    ``ccfg.scheduler="bandit"`` (the reference's self-steering scheduler,
-    with ``steer_cfg``, ``trace_path`` and ``history``) is not ported yet
-    and raises ``NotImplementedError``."""
+    ``ccfg.scheduler="bandit"`` hands the whole loop to the
+    self-steering scheduler (``explore.steer.run_steered``):
+    family-partitioned candidates, UCB compute allocation, early-kill and
+    budget escalation, with the decision trace written to ``trace_path``
+    (deterministic bytes). ``steer_cfg`` (a ``steer.SteerConfig``) tunes
+    the policy, ``history=True`` routes the steered loop's in-flight
+    triage through the history oracle (required for targets whose
+    violations only the WGL checker sees); ``ckpt_dir``/``on_chunk``
+    apply to the classic uniform loop only."""
     import time as _time
 
     if ccfg.scheduler not in ("uniform", "bandit"):
         raise ValueError(f"unknown scheduler {ccfg.scheduler!r}")
     if ccfg.scheduler == "bandit":
-        raise NotImplementedError(
-            "scheduler='bandit' waits for the port of explore/steer.py "
-            "(ROADMAP queue A, the explore item's steer module)"
-        )
-    del steer_cfg, trace_path, history  # the steered loop's
+        from .steer import run_steered
+
+        return run_steered(
+            target, base_spec, ccfg, steer_cfg, history=history,
+            report_path=report_path, trace_path=trace_path,
+            mesh=mesh, telemetry=telemetry, device=device,
+        ).campaign_result()
 
     rng = random.Random(ccfg.campaign_seed)
     corpus: List[object] = []

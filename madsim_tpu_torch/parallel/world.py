@@ -99,17 +99,20 @@ def _rank_main(rank, n, addr, backend, device, jobs, results):
 
 
 class World:
-    """``n`` ranks on ``device`` ("cpu" or "cuda") that run jobs
-    collectively (see the module doc); a CPU rank runs one torch thread.
-    Use as a context manager, or call ``close()``."""
+    """``n`` ranks on ``device`` ("cpu" or "cuda"; None means CUDA and
+    raises without a card) that run jobs collectively (see the module
+    doc); a CPU rank runs one torch thread. Use as a context manager, or
+    call ``close()``."""
 
-    def __init__(self, n: int, device: str = "cpu", backend: Optional[str] = None):
+    def __init__(self, n: int, device: Optional[str] = None, backend: Optional[str] = None):
         import multiprocessing as mp
+
+        from .. import resolve_device
 
         if n < 1:
             raise ValueError(f"a world needs at least one rank, got {n}")
         self.n = n
-        self.device = str(device)
+        self.device = str(resolve_device(None) if device is None else device)
         self.backend = _pick_backend(n, self.device, backend)
         ctx = mp.get_context("spawn")
         self._jobs = [ctx.Queue() for _ in range(n)]

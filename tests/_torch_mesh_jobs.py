@@ -321,3 +321,29 @@ def host_phase_calls(mesh, n: int, cpd: int) -> tuple:
         screen=lambda final: screen_sweep(final, spec, mesh=mesh), chunk_per_device=cpd)
     mine = torch.tensor([calls[0]], dtype=torch.int64, device=mesh.device)
     return json.dumps(totals, sort_keys=True), gather_rows(mesh, mine).cpu().tolist()
+
+
+def race_leases(root: str, name: str, barrier, results) -> None:
+    """A process racing its peer for the leases of units 0-3 of the
+    port's store at ``root`` (not a rank job: the store test spawns it)."""
+    from madsim_tpu_torch.explore.store import CorpusStore
+
+    st = CorpusStore(root, worker=name, ttl_s=60)
+    barrier.wait()
+    results.put((name, [u for u in range(4) if st.try_lease(u) is not None]))
+
+
+def steered(mesh, seeds_per_round: int, budget: int, recorded: int, families,
+            report_path: str, trace_path: str) -> tuple:
+    """``run_steered(mesh=)`` of the raft steer gate at pipeline 2 (rank 0
+    writes the files): its records and decision trace as sorted JSON."""
+    from madsim_tpu_torch import explore
+
+    target, base = explore.steer_gate(smoke=True)
+    ccfg = explore.CampaignConfig(rounds=999, seeds_per_round=seeds_per_round, campaign_seed=7,
+                                  max_recorded_seeds=recorded, scheduler="bandit")
+    scfg = explore.SteerConfig(families=tuple(families), escalate_seeds=8, kill_plays=1,
+                               budget_events=budget)
+    res = explore.run_steered(target, base, ccfg, scfg, report_path=report_path,
+                              trace_path=trace_path, mesh=mesh)
+    return json.dumps(res.records, sort_keys=True), json.dumps(res.decisions, sort_keys=True)

@@ -88,7 +88,7 @@ def worlds():
 
     def run(n, fn, *args):
         if n not in spawned:
-            spawned[n] = World(n)
+            spawned[n] = World(n, device="cpu")
         out = spawned[n].run(fn, *args)
         for r, o in enumerate(out[1:], 1):
             same_result(o, out[0], f"rank {r} of {n} returned another result than rank 0")

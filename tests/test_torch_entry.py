@@ -52,6 +52,15 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
         World(1, device="cuda")
 
 
+def test_world_defaults_to_cuda_and_refuses_without_it():
+    """``World(n)`` with no device means CUDA, like every other entry
+    point: without a card it raises instead of spawning CPU ranks."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None legitimately runs there")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        World(1)
+
+
 def test_world_backend_is_explicit():
     """No NCCL on the CPU; outside a process group the mesh is the
     one-rank mesh, whose collectives are no-ops."""

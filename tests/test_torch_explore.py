@@ -166,10 +166,20 @@ def test_shrink_equals_reference():
 
 
 def test_bandit_scheduler_is_not_ported():
-    with pytest.raises(NotImplementedError, match="steer"):
+    """The ``scheduler="bandit"`` route is ported (the name is the one
+    this test had while it pinned the refusal): one steered decision
+    through ``run_campaign`` gives the reference's result; an unknown
+    scheduler still raises. The steered runs' bytes are
+    ``tests/test_torch_steer.py``'s."""
+    ccfg = dict(rounds=1, seeds_per_round=8, chunk_size=8, scheduler="bandit")
+    want = rexplore.run_campaign(ref_target(), RSpec(**BLAND), rexplore.CampaignConfig(**ccfg))
+    got = pexplore.run_campaign(port_target(), PSpec(**BLAND), pexplore.CampaignConfig(**ccfg),
+                                device="cpu")
+    assert (got.records, got.coverage_map) == (want.records, want.coverage_map)
+    assert len(got.records) == 1 and got.records[0]["family"] == "001"
+    with pytest.raises(ValueError, match="scheduler"):
         pexplore.run_campaign(port_target(), PSpec(**BLAND),
-                              pexplore.CampaignConfig(rounds=1, scheduler="bandit"),
-                              device="cpu")
+                              pexplore.CampaignConfig(rounds=1, scheduler="greedy"), device="cpu")
 
 
 GRID = dict(seeds_per_round=64, chunk_size=64)

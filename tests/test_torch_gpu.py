@@ -1,6 +1,7 @@
 """The pop-min and megasweep CUDA kernels against their plain versions,
-and the checked sweep's torch programs (screens, canonical decode)
-against their CPU runs, on the card.
+and the checked sweep's torch programs (screens, canonical decode), the
+sharded sweep and the steered campaign against their CPU runs, on the
+card.
 
 Marked ``gpu``: the kernels have no CPU or interpret mode, so these skip
 where no CUDA card is present. This file imports no JAX (the card's
@@ -325,3 +326,26 @@ def test_sharded_sweep_on_the_card_equals_the_cpu(ranks):
         assert len(leaves) == len(want)
         for got, ref in zip(leaves, want):
             assert got.dtype == ref.dtype and np.array_equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_steered_campaign_on_the_card_equals_the_cpu(tmp_path):
+    """``run_steered`` of the raft steer gate at the rehearsal size of
+    ``chip_smoke.py`` phase 16 on the card writes the CPU run's report and
+    decision trace bytes; its triage replays run on the card, every
+    engine step through the pop-min kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from madsim_tpu_torch import explore
+
+    target, base = explore.steer_gate(smoke=True)
+    ccfg, scfg = chip_smoke.steer_configs(explore, chip_smoke.STEER_RUNS[1])
+    blobs = {}
+    for device in ("cpu", "cuda"):
+        rp, tp = str(tmp_path / f"{device}.jsonl"), str(tmp_path / f"{device}.trace")
+        run = chip_smoke.engine_steps_run(torch.device(device), lambda: explore.run_steered(
+            target, base, ccfg, scfg, report_path=rp, trace_path=tp, device=device))
+        blobs[device] = (open(rp, "rb").read(), open(tp, "rb").read())
+        if device == "cuda":
+            assert run["replay_steps"] > 0 and run["launches"] == run["calls"] + run["replay_steps"]
+    assert blobs["cuda"] == blobs["cpu"]

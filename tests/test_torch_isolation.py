@@ -1,6 +1,8 @@
 """The port stands alone: ``madsim_tpu_torch`` (and ``chip_smoke.py``)
 import neither ``jax`` nor anything of ``madsim_tpu``, and its entry
-points default to CUDA and refuse to run silently on the CPU."""
+points (``World``, the steered campaign, the fleet worker and gate and
+the differential's device half among them) default to CUDA and refuse to
+run silently on the CPU."""
 
 import ast
 import os
@@ -53,6 +55,10 @@ MODULES = [
     "madsim_tpu_torch.explore.shrink",
     "madsim_tpu_torch.explore.campaign",
     "madsim_tpu_torch.explore.fleet",
+    "madsim_tpu_torch.explore.store",
+    "madsim_tpu_torch.explore.steer",
+    "madsim_tpu_torch.explore.orchestrator",
+    "madsim_tpu_torch.explore.differential",
     "madsim_tpu_torch.entry",
 ]
 
@@ -126,7 +132,7 @@ def test_no_source_imports_jax_or_the_reference(path):
             )
 
 
-def test_entry_points_default_to_cuda_and_refuse_the_cpu():
+def test_entry_points_default_to_cuda_and_refuse_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None legitimately runs there")
     from madsim_tpu_torch.engine import core
@@ -160,6 +166,18 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu():
             rounds=1, seeds_per_round=4, chunk_size=4)),
         lambda: explore.triage_seed(target, base, 0),
         lambda: entry.entry(),
+        lambda: parallel.World(1),
+        lambda: explore.run_campaign(target, base, explore.CampaignConfig(
+            rounds=1, seeds_per_round=4, chunk_size=4, scheduler="bandit")),
+        lambda: explore.run_steered(target, base, explore.CampaignConfig(
+            rounds=1, seeds_per_round=4)),
+        lambda: explore.run_worker(target, base, explore.CampaignConfig(seeds_per_round=4),
+                                   explore.CorpusStore(str(tmp_path / "w")), 1),
+        lambda: explore.regression_gate(explore.CorpusStore(str(tmp_path / "g")), target),
+        lambda: explore.device_outcomes(base, explore.DifferentialConfig(seeds=2)),
+        lambda: explore.device_outcomes_grid([base], explore.DifferentialConfig(seeds=2)),
+        lambda: explore.run_differential([base], explore.DifferentialConfig(seeds=2), host=[
+            explore.TierOutcome(*[0] * len(explore.TierOutcome._fields))]),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
