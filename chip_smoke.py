@@ -127,22 +127,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     shrinks' count, replays and seconds; and
     ``regression_gate`` over the JAX package's store of that drill
     (``data/fleet_store``); (c) ``run_differential(gate_specs())`` at
-    ``DifferentialConfig()``, the host tier's outcomes read from
-    ``differential_host.json``, its report bytes equal to the JAX-made
+    ``DifferentialConfig()``, the host tier's outcomes computed live on
+    the port's host runtime (800 host seeds, timed, each spec's equal to
+    ``differential_host.json``), its report bytes equal to the JAX-made
     one, and ``device_outcomes_grid`` at 4,096 seeds per spec (16,384
     lanes) equal to ``differential_device.json``. Every run of phase 16
     replays seeds one lane at a time inside it (triage, shrink, the
     gate), so its launches are held to every engine step: the
-    ``step_batch`` calls plus the replays' steps.
+    ``step_batch`` calls plus the replays' steps;
+17. the cross-tier replay (``tests/test_replay.py``'s pipeline): (a)
+    ``replay.amnesia_raft_config()`` (3-node volatile raft, 3 crashes,
+    3 s, 30,000 steps) through ``core.run_sweep`` at 16,384 seeds,
+    pop_min launches equal to the ``step_batch`` calls, the violating
+    seeds among lanes 0-159 equal to the JAX-made
+    ``madsim_tpu_torch/data/host_replay.json``; (b) ``run_traced`` of the
+    second violating seed on the card, equal to the CPU's, its launches
+    equal to its steps, and its fault plan equal to
+    ``faults.compile_host`` and to the golden's; (c)
+    ``replay.replay_on_host`` of that plan on the port's host runtime
+    (the port's ``examples/raft_host.py``, host seeds 0-9), which must
+    reproduce the violation with the golden's host seed, counters and
+    history bytes. Each part's seconds and the host seeds per second are
+    printed beside the card's name and power limit.
 
-Phases 10-16 print their wall seconds, seeds/s, events/s and peak device
+Phases 10-17 print their wall seconds, seeds/s, events/s and peak device
 memory, and each zeroes pop_min's launch count before every driven run
 and checks it equals the engine steps (the ``step_batch`` calls, and in
-16 the replays' steps too). Every phase's seconds are printed. After the
-phases, both kernels' ``torch.profiler`` durations, from one profiler
+16-17 the replays' steps too). Every phase's seconds are printed. After
+the phases, both kernels' ``torch.profiler`` durations, from one profiler
 session, are printed beside their CUDA-graph times. The line before the
 last is ``{"kernels": [...]}`` (pop_min's launches summed over phases 3
-and 8-16, in 14-15 over the ranks and in 16 over the fleet's worker
+and 8-17, in 14-15 over the ranks and in 16 over the fleet's worker
 processes; its Q = 48 times beside the Q = 64 ones); the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -302,11 +317,23 @@ FLEET_GOLDEN = "fleet_drill.json"
 FLEET_STORE = "fleet_store"
 # phase 16 (c), the differential: run_differential over gate_specs() at
 # DifferentialConfig(seeds, sim_seconds) (the card's run is the config's
-# defaults, the host tier's outcomes read from differential_host.json),
-# then the device grid alone at card width; card, then rehearsal
+# defaults, the host tier's outcomes computed live on the port's host
+# runtime and held to differential_host.json), then the device grid alone
+# at card width; card, then rehearsal
 DIFF_RUNS = ((200, 2.0), (16, 1.0))
 DIFF_GRID_RUNS = ((4_096, 2.0), (16, 1.0))
 DIFF_GOLDEN = "differential_device.json"
+DIFF_HOST_GOLDEN = "differential_host.json"
+# phase 17, the cross-tier replay: tests/test_replay.py's pipeline on
+# replay.amnesia_raft_config() (3-node volatile raft, 3 crashes, 3 s,
+# 30,000 steps) at card width; the golden holds the reference test's
+# lanes 0-159, its second violating seed, that seed's plan and the host
+# tier's reproduction over host seeds 0-9; card, then rehearsal
+REPLAY_RUNS = (16_384, 64)
+REPLAY_GOLDEN_LANES = 160
+REPLAY_HOST_SEEDS = 10
+REPLAY_SIM_SECONDS = 3.0
+REPLAY_GOLDEN = "host_replay.json"
 
 
 def log(msg: str) -> None:
@@ -1161,14 +1188,20 @@ def _replay_equal(dev, wl, ecfg, seed: int, what: str):
     from madsim_tpu_torch.engine import core
 
     g_final, g_trace = core.run_traced(wl, ecfg, seed, device=dev)
-    c_final, c_trace = core.run_traced(wl, ecfg, seed, device="cpu")
+    _same_replay((g_final, g_trace), core.run_traced(wl, ecfg, seed, device="cpu"), dev, what)
+    return g_final, g_trace
+
+
+def _same_replay(got, cpu, dev, what: str) -> None:
+    """A ``run_traced`` result on ``dev`` against the CPU's: every trace
+    key and every final leaf."""
+    (g_final, g_trace), (c_final, c_trace) = got, cpu
     if sorted(g_trace) != sorted(c_trace):
         raise SystemExit(f"{what}: replay trace keys differ")
     for k in g_trace:
         if not bool((g_trace[k].cpu() == c_trace[k]).all()):
             raise SystemExit(f"{what}: replay trace {k!r} differs between {dev.type} and the CPU")
     _leaves_equal(g_final, c_final, f"{what}: replay final state")
-    return g_final, g_trace
 
 
 def phase_kafka(dev, seeds: int = KAFKA_RUNS[0], parity_seeds: int = PARITY_SEEDS) -> dict:
@@ -1870,22 +1903,28 @@ def phase_fleet(dev, run=FLEET_RUNS[0]) -> dict:
             "solo": solo, "pair": pair, "gate": gate}
 
 
-def phase_differential(dev, run=DIFF_RUNS[0], grid=DIFF_GRID_RUNS[0]) -> dict:
-    """Phase 16 (c): ``run_differential`` over ``gate_specs()`` (the host
-    tier's outcomes read from data), its report bytes against the
-    JAX-made report; then ``device_outcomes_grid`` at card width against
-    the JAX-made ``TierOutcome``s. The host-side decode and check of
-    every lane (``_fold_device``) is timed apart, inside the wall."""
+def phase_differential(dev, run=DIFF_RUNS[0], grid=DIFF_GRID_RUNS[0], card: str = "") -> dict:
+    """Phase 16 (c): ``run_differential`` over ``gate_specs()``, its host
+    half computed live on the port's host runtime (each spec's outcomes
+    held to ``differential_host.json`` and timed), its report bytes
+    against the JAX-made report; then ``device_outcomes_grid`` at card
+    width against the JAX-made ``TierOutcome``s. The host-side decode
+    and check of every lane (``_fold_device``) is timed apart, inside the
+    wall."""
     from madsim_tpu_torch import explore
     from madsim_tpu_torch.explore import differential
 
     golden = load_golden(DIFF_GOLDEN)
+    host_golden = load_golden(DIFF_HOST_GOLDEN)["host"]
     specs = differential.gate_specs()
     out = {"launches": 0, "steps": 0}
     for what, cfg_run in (("run_differential", run), ("device_outcomes_grid", grid)):
         dcfg = diff_config(explore, cfg_run)
         fold = {"calls": 0, "seconds": 0.0, "events": 0}
         inner = differential._fold_device
+        hosts = contextlib.nullcontext({"calls": 0, "seconds": 0.0, "returned": []})
+        if what == "run_differential":
+            hosts = _timed_calls(differential, "host_outcomes")
 
         def timed_fold(final, cfg):
             t = time.perf_counter()
@@ -1898,37 +1937,147 @@ def phase_differential(dev, run=DIFF_RUNS[0], grid=DIFF_GRID_RUNS[0]) -> dict:
         differential._fold_device = timed_fold
         _peak_reset(dev)
         try:
-            if what == "run_differential":
-                r = engine_steps_run(dev, lambda: differential.run_differential(
-                    specs, dcfg, device=dev))
-                got = json.dumps(r["out"], sort_keys=True) + "\n"
-                want = golden["reports"][diff_key(cfg_run)]
-            else:
-                r = engine_steps_run(dev, lambda: differential.device_outcomes_grid(
-                    specs, dcfg, device=dev))
-                got = [o._asdict() for o in r["out"]]
-                want = golden["grids"][diff_key(cfg_run)]
+            with hosts as host_box:
+                if what == "run_differential":
+                    r = engine_steps_run(dev, lambda: differential.run_differential(
+                        specs, dcfg, device=dev))
+                    got = json.dumps(r["out"], sort_keys=True) + "\n"
+                    want = golden["reports"][diff_key(cfg_run)]
+                else:
+                    r = engine_steps_run(dev, lambda: differential.device_outcomes_grid(
+                        specs, dcfg, device=dev))
+                    got = [o._asdict() for o in r["out"]]
+                    want = golden["grids"][diff_key(cfg_run)]
         finally:
             differential._fold_device = inner
         if got != want:
             raise SystemExit(f"{what} ({diff_key(cfg_run)}) != the JAX-made golden: {got}")
+        host_line = ""
+        if what == "run_differential":
+            live = [o._asdict() for o in host_box["returned"]]
+            if live != [host_golden[differential.host_key(s, dcfg)] for s in specs]:
+                raise SystemExit(f"live host outcomes ({diff_key(cfg_run)}) != "
+                                 f"{DIFF_HOST_GOLDEN}: {live}")
+            host_seeds = len(specs) * dcfg.seeds
+            out["host_seconds"] = host_box["seconds"]
+            out["host_seeds_per_s"] = host_seeds / host_box["seconds"]
+            host_line = (f"; the host half live on the port's host runtime: {host_seeds} host "
+                         f"seeds in {host_box['seconds']:.6f} s of the wall, "
+                         f"{out['host_seeds_per_s']:.3f} host seeds/s, = {DIFF_HOST_GOLDEN}")
         seeds = len(specs) * dcfg.seeds
         log(f"{what} ({diff_key(cfg_run)}, {len(specs)} specs) on {dev.type}: {seeds} lanes, "
             f"{seeds / r['wall']:.3f} seeds/s, {fold['events'] / r['wall']:.3f} events/s "
             f"({fold['events']} events); host decode and check of every lane "
-            f"{fold['seconds']:.6f} s of the wall; {_steps_line(r)}; = golden")
+            f"{fold['seconds']:.6f} s of the wall; {_steps_line(r)}; = golden{host_line}{card}")
         out["launches"] += r["launches"]
         out["steps"] += r["calls"] + r["replay_steps"]
         out[what] = r["wall"]
     return out
 
 
+def host_result(result: dict, encode=None) -> dict:
+    """What phase 17 holds of a host-tier reproduction: its counters and
+    the sha256 and length of its history's canonical bytes (``encode``,
+    by default the port's ``history_bytes``; the golden is made with the
+    reference's)."""
+    import hashlib
+
+    if encode is None:
+        from madsim_tpu_torch.oracle.history import history_bytes as encode
+
+    blob = encode(result["history"])
+    return {"host_seed": result["host_seed"], "leaders_elected": result["leaders_elected"],
+            "violations": result["violations"], "msgs": result["msgs"],
+            "history_sha256": hashlib.sha256(blob).hexdigest(), "history_len": len(blob)}
+
+
+def replay_on_host(replay, raft_host, plan, num_nodes: int):
+    """Stage 4 of the pipeline: the plan applied to the host-tier raft
+    example, host seeds scanned until the violation reproduces."""
+    return replay.replay_on_host(
+        lambda hs, p: raft_host.run_seed_with_plan(hs, p, n=num_nodes,
+                                                   sim_seconds=REPLAY_SIM_SECONDS),
+        plan, host_seeds=range(REPLAY_HOST_SEEDS))
+
+
+def phase_cross_tier(dev, seeds: int = REPLAY_RUNS[0], card: str = "") -> dict:
+    """Phase 17, the cross-tier replay: (a) the amnesia sweep on ``dev``,
+    launches = ``step_batch`` calls, the violating seeds among lanes
+    0-159 equal to the golden's; (b) ``run_traced`` of the second
+    violating seed on ``dev`` equal to the CPU's, its fault plan equal to
+    ``faults.compile_host`` and to the golden's; (c) ``replay_on_host`` of
+    that plan on the port's host runtime, equal to the golden's
+    reproduction."""
+    import numpy as np
+
+    from madsim_tpu_torch import faults, replay
+    from madsim_tpu_torch.engine import core
+    from madsim_tpu_torch.examples import raft_host
+    from madsim_tpu_torch.models import raft
+
+    golden = load_golden(REPLAY_GOLDEN)
+    cfg, ecfg = replay.amnesia_raft_config()
+    wl = raft.workload(cfg)
+    seconds = {}
+
+    _peak_reset(dev)
+    a = engine_steps_run(dev, lambda: core.run_sweep(wl, ecfg, np.arange(seeds), device=dev))
+    seconds["a"] = a["wall"]
+    vio = [int(v) for v in replay.violation_seeds(a["out"])]
+    lanes = min(seeds, REPLAY_GOLDEN_LANES)
+    want = [v for v in golden["violating"] if v < lanes]
+    if [v for v in vio if v < lanes] != want:
+        raise SystemExit(f"violating seeds among lanes 0-{lanes - 1}: {vio[:16]} != {want}")
+    events = int(a["out"].ctr.sum())
+    log(_rates("phase 17 (a) amnesia sweep", seeds, events, a["wall"], a["calls"],
+               a["launches"], dev) + f"; {len(vio)} violating seeds, lanes 0-{lanes - 1} "
+        f"= golden {want}; {card}")
+    del a["out"]
+
+    seed = vio[1]
+    if seed != golden["seed"]:
+        raise SystemExit(f"second violating seed {seed} != golden {golden['seed']}")
+    t = time.perf_counter()
+    b = engine_steps_run(dev, lambda: core.run_traced(wl, ecfg, seed, device=dev))
+    _same_replay(b["out"], core.run_traced(wl, ecfg, seed, device="cpu"), dev, "phase 17 (b)")
+    seconds["b"] = time.perf_counter() - t
+    single, trace = b["out"]
+    if not bool(single.wstate.violation):
+        raise SystemExit(f"phase 17 (b): the replay of seed {seed} latched no violation")
+    plan = replay.extract_fault_schedule(trace, raft.K_FAULT)
+    compiled = faults.compile_host(raft.fault_spec(cfg), cfg.num_nodes, seed)
+    if plan != compiled or [list(e) for e in plan] != golden["plan"]:
+        raise SystemExit(f"phase 17 (b): plan {plan} != compile_host {compiled} or the golden")
+    log(f"phase 17 (b) run_traced of seed {seed} on {dev.type} (with the CPU's, "
+        f"{seconds['b']:.6f} s; the card's {b['wall']:.6f} s, {b['replay_steps']} one-lane "
+        f"steps, {b['launches']} pop_min launches) = the CPU's on every trace key and final "
+        f"leaf; plan ({len(plan)} events) = compile_host = golden; {card}")
+
+    t = time.perf_counter()
+    result = replay_on_host(replay, raft_host, plan, cfg.num_nodes)
+    seconds["c"] = time.perf_counter() - t
+    if result is None:
+        raise SystemExit("phase 17 (c): the violation did not reproduce on the host tier")
+    got = host_result(result)
+    if got != golden["host"]:
+        raise SystemExit(f"phase 17 (c): {got} != golden {golden['host']}")
+    host_runs = got["host_seed"] + 1
+    log(f"phase 17 (c) replay_on_host: reproduced at host seed {got['host_seed']} "
+        f"({host_runs} host seeds in {seconds['c']:.6f} s, "
+        f"{host_runs / seconds['c']:.3f} host seeds/s), {got['violations']} violation(s), "
+        f"{got['leaders_elected']} leaders, {got['msgs']} msgs, history sha256 "
+        f"{got['history_sha256'][:16]}... = golden; {card}")
+    log(f"phase 17 seconds: {json.dumps({k: round(v, 6) for k, v in seconds.items()})}; {card}")
+    return {"launches": a["launches"] + b["launches"], "steps": a["calls"] + b["replay_steps"],
+            "seconds": seconds, "host": got}
+
+
 def phase_explore(dev, steer=STEER_RUNS[0], fleet=FLEET_RUNS[0], diff=DIFF_RUNS[0],
-                  grid=DIFF_GRID_RUNS[0]) -> dict:
+                  grid=DIFF_GRID_RUNS[0], card: str = "") -> dict:
     """Phase 16: the steered campaign (a), the fleet drill (b) and the
     differential (c); launches summed over all three."""
     parts = {"steer": phase_steer(dev, steer), "fleet": phase_fleet(dev, fleet),
-             "differential": phase_differential(dev, diff, grid)}
+             "differential": phase_differential(dev, diff, grid, card=card)}
     return dict(parts, launches=sum(p["launches"] for p in parts.values()),
                 steps=sum(p["steps"] for p in parts.values()))
 
@@ -2002,14 +2151,16 @@ def main() -> int:
     torch.cuda.empty_cache()  # the ranks of phases 14-15 share the card
     meshed = timed(14, phase_mesh, dev)
     campaigned = timed(15, phase_campaign, dev)
-    explored = timed(16, phase_explore, dev)
+    explored = timed(16, phase_explore, dev, card=f"; {smi}")
+    crossed = timed(17, phase_cross_tier, dev, card=smi)
     per_phase = {3: launches, 8: grid["launches"], 9: checked["launches"],
                  10: kafka_out["launches"], 11: s3_out["launches"],
                  12: kafka_checked["launches"], 13: streamed["launches"],
-                 14: meshed["launches"], 15: campaigned["launches"], 16: explored["launches"]}
+                 14: meshed["launches"], 15: campaigned["launches"], 16: explored["launches"],
+                 17: crossed["launches"]}
     launches = sum(per_phase.values())
     log(f"pop_min launches per phase (each = its engine steps: step_batch calls, summed over "
-        f"the ranks in 14-15 and the workers in 16, and in 16 the one-lane replays' steps): "
+        f"the ranks in 14-15 and the workers in 16, and in 16-17 the one-lane replays' steps): "
         f"{json.dumps(per_phase)}; total {launches}")
     log(f"phase seconds: {json.dumps({p: round(t, 3) for p, t in seconds.items()})}")
     profiled = profiled_kernels_ms([("pop_min_kernel", k["launch"], 50),

@@ -19,6 +19,7 @@ workload's ``init`` receives on the sweep's device.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -156,12 +157,27 @@ def params_to_device(params, device):
     )
 
 
+def _procs_child_guard() -> None:
+    """Fail by name, not by hang, when the device tier is entered from a
+    forked ``Builder(procs=N)`` sweep child: this module holds the real
+    torch its child's ``sys.modules`` poison cannot reach, and CUDA
+    cannot be re-initialized after a fork. The sentinel carries the
+    child's pid: an exec'd descendant of a child (fresh interpreter, no
+    inherited state) inherits the variable but not the pid, and may use
+    the engine."""
+    if os.environ.get("MADSIM_IN_PROCS_CHILD") == str(os.getpid()):
+        from ..builder import ProcsDeviceTierError
+
+        raise ProcsDeviceTierError("madsim_tpu_torch.engine")
+
+
 def init_sweep(
     workload: Workload, cfg: EngineConfig, seeds, device=None, params=None
 ) -> EngineState:
     """Build the batched state for a seed vector (int64[S]). ``params``
     (optional) is a per-lane tree — leading axis S on every leaf, e.g.
     ``faults.tile_params`` of one candidate or a candidate x seed grid."""
+    _procs_child_guard()
     dev = resolve_device(device)
     _validate(workload, cfg)
     seeds = _seed_tensor(seeds, dev)

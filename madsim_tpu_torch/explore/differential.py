@@ -18,17 +18,14 @@ drives both. Over a matched ``(spec, seed)`` grid it requires
 3. **byte-deterministic reports**: the JSON report carries only integer
    counts and sorted keys.
 
-The port carries the device half: ``device_outcomes``,
-``device_outcomes_grid`` (one spec-as-data sweep for the whole spec
-set), ``_fold_device``, ``compare``, ``run_differential`` and
-``gate_specs``. **The host half runs the reference's host runtime**,
-which the port does not import, so the port's ``host_outcomes`` reads
-the host tier's ``TierOutcome`` from ``data/differential_host.json``,
-made by the JAX package (``JAX_PLATFORMS=cpu python
-tests/test_torch_explore_golden.py --write``) and keyed by the spec's
-canonical dict and the ``DifferentialConfig``; ``run_differential(host=)``
-takes them from the caller instead. Every device sweep runs on
-``device`` (None means CUDA).
+The device half is ``device_outcomes``, ``device_outcomes_grid`` (one
+spec-as-data sweep for the whole spec set) and ``_fold_device``; every
+device sweep runs on ``device`` (None means CUDA). The host half,
+``host_outcomes``, runs the port's own host-tier raft example
+(``madsim_tpu_torch/examples/raft_host.py``) on the port's host runtime,
+which is the CPU tier by design; ``run_differential(host=)`` takes the
+host outcomes from the caller instead. ``data/differential_host.json``
+(made by the JAX package, keyed by ``host_key``) is a golden only.
 
 Tolerances are in per-mille of the seed count: election presence and
 no-leader rates track within a few percent; violation rates differ more
@@ -39,7 +36,6 @@ has no log, so its double-vote window differs) and get a wider band.
 from __future__ import annotations
 
 import json
-import os
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -49,12 +45,6 @@ from ..engine.faults import FaultSpec
 from ..oracle import ElectionSpec, check_history, decode_sweep
 from ..oracle.history import host as _host
 from .campaign import spec_to_dict
-
-# the host tier's outcomes, made by the JAX package (see the module doc)
-HOST_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                         "data", "differential_host.json")
-WRITE_COMMAND = "JAX_PLATFORMS=cpu python tests/test_torch_explore_golden.py --write"
-
 
 class DifferentialConfig(NamedTuple):
     """Grid parameters (hashable, reprs stably)."""
@@ -205,31 +195,53 @@ def _fold_device(final, dcfg: DifferentialConfig) -> TierOutcome:
 
 
 def host_key(spec, dcfg: DifferentialConfig) -> str:
-    """The key of one grid's host outcomes in ``differential_host.json``:
-    the spec's canonical dict and the config (floats kept out, as in the
-    report), as sorted JSON."""
+    """The key of one grid's host outcomes in the golden
+    ``data/differential_host.json``: the spec's canonical dict and the
+    config (floats kept out, as in the report), as sorted JSON."""
     return json.dumps({"spec": spec_to_dict(spec), "config": _config(dcfg)}, sort_keys=True)
 
 
 def host_outcomes(
     spec, dcfg: DifferentialConfig = DifferentialConfig()
 ) -> TierOutcome:
-    """The host tier's outcomes over the grid: the reference runs
-    ``examples/raft_host.py`` once per grid seed under the SAME compiled
-    fault schedule (``campaign_seed = seed``, ``extend=False``) and folds
-    the same outcomes, checking each recorded history. The port cannot
-    run the host runtime, so it reads the JAX package's result from
-    ``differential_host.json``; a grid missing there raises ``KeyError``
-    naming the command that makes it."""
-    with open(HOST_DATA) as f:
-        table = json.load(f)["host"]
-    key = host_key(spec, dcfg)
-    if key not in table:
-        raise KeyError(
-            f"no host-tier outcomes for {key} in {HOST_DATA}; the JAX package "
-            f"makes them: add the grid and run `{WRITE_COMMAND}`"
+    """Run the host-tier raft example once per grid seed under the SAME
+    compiled fault schedule (``campaign_seed = seed``, so the fault
+    environment matches the device lane of that seed by construction)
+    and fold the same outcomes, checking each recorded history.
+
+    ``extend=False``: a matched grid needs matched horizons — the host
+    run hard-stops at ``sim_seconds`` exactly like the device lane stops
+    at ``time_limit_ns``, instead of extending past a schedule that
+    outlives the window (the replay pipeline's default)."""
+    from ..examples import raft_host
+
+    espec = ElectionSpec()
+    elected = no_leader = violating = total = 0
+    rejects = mismatches = 0
+    for seed in range(dcfg.seed0, dcfg.seed0 + dcfg.seeds):
+        out = raft_host.run_seed_with_spec(
+            seed, spec, seed, n=dcfg.num_nodes, sim_seconds=dcfg.sim_seconds,
+            extend=False,
         )
-    return TierOutcome(**table[key])
+        n_elec = out["leaders_elected"]
+        total += n_elec
+        elected += n_elec > 0
+        no_leader += n_elec == 0
+        vio = out["violations"] > 0
+        violating += vio
+        bad = not check_history(out["history"], espec).ok
+        rejects += bad
+        mismatches += bad != vio
+    return TierOutcome(
+        elected_seeds=int(elected),
+        no_leader_seeds=int(no_leader),
+        violation_seeds=int(violating),
+        elections_total=int(total),
+        commits_total=0,
+        hist_reject_seeds=int(rejects),
+        hist_mismatch_seeds=int(mismatches),
+        hist_overflow_seeds=0,
+    )
 
 
 def compare(

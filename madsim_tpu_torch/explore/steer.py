@@ -14,7 +14,7 @@ The pieces:
   region reached by a *mutation lineage* — a seeded mutation chain
   confined to the family's mask. ``family_candidate(base, mask, seed,
   lineage)`` regenerates any chain element bit-identically anywhere
-  (the rng key derives from the campaign seed through ``_mix64``, the
+  (the rng key derives from the campaign seed through ``rand.mix64``, the
   splitmix64 finalizer — one seed, one chain).
 - **The bandit** (:class:`BanditScheduler`) is UCB1 over families,
   scored by novel-coverage-bits-per-device-event. The argmax needs no
@@ -62,6 +62,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..rand import mix64
 from .campaign import (
     _COUNT_FIELDS,
     CampaignConfig,
@@ -73,15 +74,6 @@ from .campaign import (
 from .targets import Target
 
 _M64 = (1 << 64) - 1
-
-
-def _mix64(x: int) -> int:
-    """The splitmix64 finalizer (the reference's ``madsim_tpu.rand.mix64``,
-    kept as the port's own copy): the chain rng's key derivation."""
-    x &= _M64
-    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9 & _M64
-    x = (x ^ (x >> 27)) * 0x94D049BB133111EB & _M64
-    return x ^ (x >> 31)
 
 
 # ---------------------------------------------------------------------------
@@ -135,12 +127,12 @@ def _mask_spec(spec, mask: int):
 
 def _chain_rng(campaign_seed: int, mask: int, salt: int) -> random.Random:
     """The mutation-chain rng for one ``(family, salt)`` lineage —
-    derived from the campaign seed through ``_mix64`` (the splitmix64
+    derived from the campaign seed through ``rand.mix64`` (the splitmix64
     finalizer), so family chains are independent streams of ONE
     explicitly seeded key."""
-    k = _mix64(campaign_seed & _M64)
-    k = _mix64(k ^ mask)
-    k = _mix64(k ^ (salt & _M64))
+    k = mix64(campaign_seed & _M64)
+    k = mix64(k ^ mask)
+    k = mix64(k ^ (salt & _M64))
     return random.Random(k)
 
 

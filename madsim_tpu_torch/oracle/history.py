@@ -359,13 +359,36 @@ def _block_widths(length, h: int, block: int) -> List[int]:
 
 
 class HostRecorder:
-    """Thin client shim recording host-run operation histories in the
-    device decoder's format: wrap each client call in ``invoke`` /
-    ``complete`` and ``history()`` yields a ``History`` the same specs
-    check. ``clock`` is a ``() -> int`` of nanoseconds; the port has no
-    host simulation runtime whose virtual clock could stand in for it."""
+    """Thin client-shim recording host-tier operation histories.
 
-    def __init__(self, clock: Callable[[], int]):
+    The host tier runs arbitrary async Python under the same virtual
+    clock; wrapping each client call in ``invoke``/``complete`` yields
+    the same ``History`` structure the device decoder produces, so one
+    checker serves both tiers::
+
+        rec = HostRecorder()
+        opid = rec.invoke(client=0, op=OP_PUT, key=3, inp=42)
+        resp = await kv.put(b"k3", b"42")
+        rec.complete(client=0, opid=opid, out=42)
+        check_history(rec.history(), KVSpec())
+
+    Times default to the running simulation's virtual clock
+    (``madsim_tpu_torch.time``); pass ``clock`` (a ``() -> int`` of
+    nanoseconds) to record outside a sim context. NOTE: two engines
+    cannot share one RNG stream, so a host history for a ``(spec,
+    seed)`` is *not* byte-comparable to the device history — byte
+    identity is the contract between the device sweep and its CPU
+    ``run_traced`` replay; host histories share only the format and the
+    checker (docs/oracle.md).
+    """
+
+    def __init__(self, clock: Optional[Callable[[], int]] = None):
+        if clock is None:
+            def clock() -> int:
+                from ..context import current_handle
+
+                return int(current_handle().time.now_ns)
+
         self._clock = clock
         self._rows: List[Tuple[int, int, int, int, int, int]] = []
         self._next_opid = {}

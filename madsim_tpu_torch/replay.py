@@ -1,27 +1,27 @@
-"""Replay helpers of the explore loop (the port's own copy of
-``madsim_tpu/replay.py``'s device-tier helpers and
-``madsim_tpu/faults.py::compile_host``).
+"""Cross-tier replay: device-found failure seeds → host-tier user code
+(the port's own copy of ``madsim_tpu/replay.py``).
 
-A sweep flags violating seeds (``violation_seeds``); ``core.run_traced``
-replays one bit-exactly, and ``extract_fault_schedule`` lifts the fired
-fault events out of its trace with the exact deadlines their payloads
-carry. ``compile_host`` derives the same schedule from ``(spec, seed)``
-without a replay (``engine/faults.schedule_events`` on the CPU), so the
-two agree for every event inside the engine horizon.
-
-The host-tier supervisor that applies such a schedule to async user code
-(``madsim_tpu.faults.apply_schedule``) belongs to the host runtime,
-which the port does not carry; a schedule from here is plain data it
-accepts.
+1. a sweep flags violating seeds (``violation_seeds``);
+2. ``core.run_traced`` replays one bit-exactly, and
+   ``extract_fault_schedule`` lifts the fired fault events out of its
+   trace with the exact deadlines their payloads carry;
+3. ``faults.compile_host`` derives the same schedule from ``(spec,
+   seed)`` without a replay, so the two agree for every event inside the
+   engine horizon;
+4. ``replay_on_host`` drives host-tier user code (the port's own
+   ``examples/raft_host.run_seed_with_plan``) under that schedule on the
+   port's host runtime, where a debugger can step through it. Two
+   engines cannot share one RNG stream, so what transfers is the fault
+   environment, not the interleaving: a few host seeds are scanned.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-FaultEvent = Tuple[int, str, int]  # (time_ns, action name, victim node)
+from .faults import FaultEvent, compile_host  # noqa: F401  (re-exported)
 
 
 def _host(a) -> np.ndarray:
@@ -88,20 +88,22 @@ def history_violation_seeds(final, spec) -> np.ndarray:
     return violating_seeds(final, spec)
 
 
-def compile_host(spec, num_nodes: int, seed: int) -> List[FaultEvent]:
-    """The campaign of one seed as a time-sorted ``(time_ns, action,
-    victim)`` schedule: ``engine/faults.schedule_events`` on the CPU, the
-    derivation a device sweep of that seed injects. A ``FixedFaults``
-    schedule comes back verbatim, time-sorted."""
-    import torch
+def replay_on_host(
+    run_with_plan: Callable[[int, Sequence[FaultEvent]], Dict],
+    plan: Sequence[FaultEvent],
+    host_seeds: Sequence[int] = range(8),
+    reproduced: Callable[[Dict], bool] = lambda r: r.get("violations", 0) > 0,
+) -> Optional[Dict]:
+    """Drive host-tier user code under the recorded fault plan.
 
-    from .engine.faults import ACTION_NAMES, schedule_events
-    from .engine.rng import seed_key
-
-    times, actions, victims = schedule_events(
-        spec, num_nodes, seed_key(torch.tensor([int(seed)], dtype=torch.int64))
-    )
-    return sorted(
-        (int(t), ACTION_NAMES[int(a)], int(v))
-        for t, a, v in zip(_host(times[0]), _host(actions[0]), _host(victims[0]))
-    )
+    ``run_with_plan(seed, plan)`` runs one host simulation (e.g.
+    ``examples.raft_host.run_seed_with_plan``); the host tier's own
+    schedule randomization varies per seed, so a few seeds are scanned.
+    Returns the first result where ``reproduced`` holds, else None.
+    """
+    for seed in host_seeds:
+        result = run_with_plan(int(seed), plan)
+        if reproduced(result):
+            result["host_seed"] = int(seed)
+            return result
+    return None

@@ -3,7 +3,9 @@ of its golden files: the steered campaign's report and trace equal the
 JAX-made golden's, the fleet drill's solo and pair merged reports equal
 each other and the golden, the regression gate passes over the JAX
 package's store, and the differential's report and device grid equal
-theirs; no kernel launches on the CPU, and the replays are counted."""
+theirs, its host half computed live on the port's host runtime and
+equal to ``differential_host.json``; no kernel launches on the CPU, and
+the replays are counted."""
 
 import torch
 
@@ -20,3 +22,4 @@ def test_explore_phase_on_the_plain_path():
         list(range(chip_smoke.FLEET_UNITS))
     assert out["fleet"]["solo"]["replay_steps"] > 0 and out["fleet"]["solo"]["shrink"]["calls"] > 0
     assert out["fleet"]["gate"]["ok"] and out["fleet"]["gate"]["checked"] >= 1
+    assert out["differential"]["host_seeds_per_s"] > 0  # the host half ran live

@@ -8,9 +8,9 @@ per spec and the reference's grid, every ``TierOutcome`` field a plain
 ``int``; ``run_differential``'s report bytes equal the reference's when
 the host tier's outcomes come from the reference's own
 ``host_outcomes``; both of the reference's results equal ``chip_smoke.py``
-phase 16 (c)'s rehearsal golden. The host half runs the reference's
-host runtime, so the port reads it from ``data/differential_host.json``
-and raises for a grid that file does not hold."""
+phase 16 (c)'s rehearsal golden. The port's host half runs live on the
+port's own host runtime and equals the reference's on a grid that
+``data/differential_host.json`` (a golden only) does not hold."""
 
 import json
 
@@ -105,19 +105,23 @@ def test_run_differential_report_bytes_equal_reference(tmp_path):
 
 
 def test_host_outcomes_come_from_data_and_refuse_a_missing_grid():
-    """The default gate grid is in the data (the JAX package made it);
-    another grid raises and names the command that makes it, and so
-    does ``run_differential`` without ``host=``."""
-    dcfg = pdiff.DifferentialConfig()
-    for spec in pdiff.gate_specs():
-        out = pdiff.host_outcomes(spec, dcfg)
-        assert out.elected_seeds + out.no_leader_seeds == dcfg.seeds
-    with pytest.raises(KeyError, match="--write"):
-        pdiff.host_outcomes(pdiff.gate_specs()[0], dcfg._replace(seeds=17))
-    with pytest.raises(KeyError, match="differential_host.json"):
-        pdiff.run_differential(pdiff.gate_specs()[:1], pdiff.DifferentialConfig(seeds=1,
-                               sim_seconds=0.1), device="cpu")
+    """The host half runs live on the port's host runtime: a grid that
+    ``differential_host.json`` does not hold (17 seeds) gives the
+    reference's outcomes, and so does ``run_differential`` without
+    ``host=`` on another such grid. ``host=`` must still carry one
+    outcome per spec."""
+    dcfg = pdiff.DifferentialConfig(seeds=17)
+    table = chip_smoke.load_golden(chip_smoke.DIFF_HOST_GOLDEN)["host"]
+    assert pdiff.host_key(pdiff.gate_specs()[0], dcfg) not in table
+    got = pdiff.host_outcomes(pdiff.gate_specs()[0], dcfg)
+    want = rdiff.host_outcomes(rdiff.gate_specs()[0], rdiff.DifferentialConfig(seeds=17))
+    assert got._asdict() == want._asdict()
+    assert got.elected_seeds + got.no_leader_seeds == dcfg.seeds
+    small = dict(seeds=3, sim_seconds=0.5)
+    got = pdiff.run_differential(pdiff.gate_specs()[:1], pdiff.DifferentialConfig(**small),
+                                 device="cpu")
+    want = rdiff.host_outcomes(rdiff.gate_specs()[0], rdiff.DifferentialConfig(**small))
+    assert got["specs"][0]["host"] == want._asdict()
     with pytest.raises(ValueError, match="host outcomes"):
-        pdiff.run_differential(pdiff.gate_specs()[:2], pdiff.DifferentialConfig(
-            seeds=1, sim_seconds=0.1), host=[pdiff.host_outcomes(pdiff.gate_specs()[0], dcfg)],
-            device="cpu")
+        pdiff.run_differential(pdiff.gate_specs()[:2], pdiff.DifferentialConfig(**small),
+                               host=[got["specs"][0]["host"]], device="cpu")

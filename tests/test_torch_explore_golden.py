@@ -12,8 +12,9 @@ the card, each made by the JAX reference on the CPU:
   each ``chip_smoke.DIFF_RUNS`` size and ``device_outcomes_grid``'s
   ``TierOutcome``s at each ``chip_smoke.DIFF_GRID_RUNS`` size;
 - ``differential_host.json``: the host tier's ``TierOutcome`` of every
-  ``DIFF_RUNS`` grid, keyed by ``differential.host_key`` — what the
-  port's ``host_outcomes`` reads, since it cannot run the host runtime.
+  ``DIFF_RUNS`` grid, keyed by ``differential.host_key`` — the golden
+  that the port's ``host_outcomes``, run live on the port's host
+  runtime, is held to.
 
 The rehearsal-sized entries are recomputed with ``madsim_tpu`` in
 tier-1 by the parity tests whose reference runs are those configs
@@ -131,10 +132,11 @@ def test_goldens_hold_what_chip_smoke_runs():
     from madsim_tpu_torch import explore as pexplore
 
     specs = pdiff.gate_specs()
+    host = _golden(chip_smoke.DIFF_HOST_GOLDEN)["host"]
     for run in chip_smoke.DIFF_RUNS:
         dcfg = chip_smoke.diff_config(pexplore, run)
         report = json.loads(diff["reports"][chip_smoke.diff_key(run)])
-        hosts = [pdiff.host_outcomes(spec, dcfg)._asdict() for spec in specs]
+        hosts = [host[pdiff.host_key(spec, dcfg)] for spec in specs]
         assert hosts == [rec["host"] for rec in report["specs"]]
 
 

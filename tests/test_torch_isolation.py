@@ -1,5 +1,6 @@
 """The port stands alone: ``madsim_tpu_torch`` (and ``chip_smoke.py``)
-import neither ``jax`` nor anything of ``madsim_tpu``, and its entry
+import neither ``jax`` nor anything of ``madsim_tpu`` or ``examples/``,
+its host tier imports no torch, and its entry
 points (``World``, the steered campaign, the fleet worker and gate and
 the differential's device half among them) default to CUDA and refuse to
 run silently on the CPU."""
@@ -15,6 +16,16 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "madsim_tpu_torch")
+
+# the host tier: numpy only, never torch (it runs in forked procs children
+# and in the checker's pool workers)
+HOST_MODULES = ["madsim_tpu_torch." + m for m in (
+    "rand", "context", "futures", "time", "task", "config", "plugin", "metrics",
+    "tracing", "interpose", "runtime", "net", "net.network", "net.netsim", "net.dns",
+    "net.ipvs", "net.endpoint", "net.rpc", "net.tcp", "net.udp", "net.unix", "fs",
+    "sync", "buggify", "signal", "builder", "faults", "replay", "examples",
+    "examples.raft_host",
+)]
 
 MODULES = [
     "madsim_tpu_torch",
@@ -48,7 +59,6 @@ MODULES = [
     "madsim_tpu_torch.parallel",
     "madsim_tpu_torch.parallel.mesh",
     "madsim_tpu_torch.parallel.world",
-    "madsim_tpu_torch.replay",
     "madsim_tpu_torch.explore",
     "madsim_tpu_torch.explore.targets",
     "madsim_tpu_torch.explore.triage",
@@ -60,7 +70,7 @@ MODULES = [
     "madsim_tpu_torch.explore.orchestrator",
     "madsim_tpu_torch.explore.differential",
     "madsim_tpu_torch.entry",
-]
+] + HOST_MODULES
 
 
 def _sources():
@@ -115,6 +125,25 @@ def test_the_checkers_modules_import_no_torch(module):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_the_host_tier_imports_no_torch():
+    """``import madsim_tpu_torch`` and every host-tier module (the
+    runtime, net, fs, builder, faults, the raft example) leave torch out
+    of ``sys.modules``."""
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in ["madsim_tpu_torch"] + HOST_MODULES)
+        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))\n"
+        "assert not bad, bad[:5]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_no_source_imports_jax_or_the_reference(path):
     tree = ast.parse(open(path).read(), filename=path)
@@ -127,7 +156,7 @@ def test_no_source_imports_jax_or_the_reference(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "madsim_tpu"), (
+            assert top not in ("jax", "jaxlib", "madsim_tpu", "examples", "raft_host"), (
                 f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}"
             )
 
