@@ -8,9 +8,15 @@ neither JAX nor ``madsim_tpu``.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. device and build: the card's name and power limit, then both kernels
-   built from ``madsim_tpu_torch/csrc/pop_min.cu`` and ``megasweep.cu``
-   with nvcc, the two builds started together;
+1. device and build: the host tier's compiled core
+   (``madsim_tpu_torch/native/simcore.cpp`` with g++ and ``simloop.c``
+   with gcc against the interpreter's ``Python.h``, into
+   ``madsim_tpu_torch/_build/native/``), built when the package is
+   imported: the script exits non-zero, naming ``native.build_error()``,
+   if it did not build or load; then the card's name and power limit,
+   then both kernels built from ``madsim_tpu_torch/csrc/pop_min.cu`` and
+   ``megasweep.cu`` with nvcc, the two builds started together, and the
+   core's build seconds beside nvcc's;
 2. the kernel against its plain torch version on the card, at the main
    path's shape (16,384 seeds x 64 slots): flagship queues after 300
    events (real ties), empty queues and full queues with heavy ties —
@@ -148,7 +154,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     (the port's ``examples/raft_host.py``, host seeds 0-9), which must
     reproduce the violation with the golden's host seed, counters and
     history bytes. Each part's seconds and the host seeds per second are
-    printed beside the card's name and power limit.
+    printed beside the card's name and power limit. Phases 16 (c) and 17
+    (c) run the port's host tier on its compiled core
+    (``native/simloop.c``), as the reference's runs by default;
+18. the host tier on its compiled core: (a) ``differential.gate_specs()[0]``
+    over ``DifferentialConfig()``'s 200 host seeds (2 s each) of the
+    port's raft example, the fault plans compiled beforehand, in process
+    on the core and again in a fresh interpreter under
+    ``MADSIM_NO_NATIVE=1`` that imports no torch: both outcomes equal to
+    ``differential_host.json``'s, and host seeds/s each way and their
+    ratio; (b) ``rng.event_bits`` on the card of the flagship's 16,384
+    seed keys at counters 0, 1, 7 and 123,456, 15 words each, equal word
+    for word to ``native.fold_in`` + ``native.threefry2x32_batch`` on the
+    host; (c) each shim program of ``tests/_torch_shim_programs.py``'s
+    ``SMOKE`` (the greeter's four call kinds, kv_store's scenario, etcd,
+    Kafka with a consumer group, S3 with a multipart upload, the tokio
+    runtime) over seeds 0-63 on the core: the sha256 of the determinism
+    logs and of the outputs, and every seed's draws and virtual ns, equal
+    to the JAX package's ``host_shims.json``
+    (``python tests/test_torch_shims_golden.py --write``); programs/s.
+    Phase 18 launches no kernel.
 
 Phases 10-17 print their wall seconds, seeds/s, events/s and peak device
 memory, and each zeroes pop_min's launch count before every driven run
@@ -334,6 +359,20 @@ REPLAY_GOLDEN_LANES = 160
 REPLAY_HOST_SEEDS = 10
 REPLAY_SIM_SECONDS = 3.0
 REPLAY_GOLDEN = "host_replay.json"
+# phase 18, the host tier on its compiled core: (a) gate_specs()[0] over
+# phase 16 (c)'s host seeds (DifferentialConfig()'s 200 at 2 s on the card,
+# the rehearsal's 16 at 1 s), on the core and in a fresh interpreter under
+# MADSIM_NO_NATIVE=1, against differential_host.json; (b) the device draw
+# stream, rng.event_bits of the flagship's seed keys at NATIVE_CTRS, 15
+# words each, against native.fold_in + threefry2x32_batch (lanes: card,
+# then rehearsal); (c) each program of tests/_torch_shim_programs.py's
+# SMOKE over seeds 0..n-1 against host_shims.json (card, then rehearsal)
+NATIVE_HOST_RUNS = DIFF_RUNS
+NATIVE_DRAW_LANES = (16_384, 64)
+NATIVE_CTRS = (0, 1, 7, 123_456)
+NATIVE_DRAW_WORDS = 15
+SHIM_RUNS = (64, 8)
+SHIMS_GOLDEN = "host_shims.json"
 
 
 def log(msg: str) -> None:
@@ -1961,7 +2000,8 @@ def phase_differential(dev, run=DIFF_RUNS[0], grid=DIFF_GRID_RUNS[0], card: str 
             host_seeds = len(specs) * dcfg.seeds
             out["host_seconds"] = host_box["seconds"]
             out["host_seeds_per_s"] = host_seeds / host_box["seconds"]
-            host_line = (f"; the host half live on the port's host runtime: {host_seeds} host "
+            host_line = (f"; the host half live on the port's host runtime ({host_loop()}): "
+                         f"{host_seeds} host "
                          f"seeds in {host_box['seconds']:.6f} s of the wall, "
                          f"{out['host_seeds_per_s']:.3f} host seeds/s, = {DIFF_HOST_GOLDEN}")
         seeds = len(specs) * dcfg.seeds
@@ -1973,6 +2013,13 @@ def phase_differential(dev, run=DIFF_RUNS[0], grid=DIFF_GRID_RUNS[0], card: str 
         out["steps"] += r["calls"] + r["replay_steps"]
         out[what] = r["wall"]
     return out
+
+
+def host_loop() -> str:
+    """Which loop the port's host tier runs on in this process."""
+    if sys.modules["madsim_tpu_torch.time"]._simloop is not None:
+        return "on the compiled core, native/simloop.c"
+    return "on the pure-Python loop"
 
 
 def host_result(result: dict, encode=None) -> dict:
@@ -2062,7 +2109,8 @@ def phase_cross_tier(dev, seeds: int = REPLAY_RUNS[0], card: str = "") -> dict:
     if got != golden["host"]:
         raise SystemExit(f"phase 17 (c): {got} != golden {golden['host']}")
     host_runs = got["host_seed"] + 1
-    log(f"phase 17 (c) replay_on_host: reproduced at host seed {got['host_seed']} "
+    log(f"phase 17 (c) replay_on_host ({host_loop()}): reproduced at host seed "
+        f"{got['host_seed']} "
         f"({host_runs} host seeds in {seconds['c']:.6f} s, "
         f"{host_runs / seconds['c']:.3f} host seeds/s), {got['violations']} violation(s), "
         f"{got['leaders_elected']} leaders, {got['msgs']} msgs, history sha256 "
@@ -2080,6 +2128,171 @@ def phase_explore(dev, steer=STEER_RUNS[0], fleet=FLEET_RUNS[0], diff=DIFF_RUNS[
              "differential": phase_differential(dev, diff, grid, card=card)}
     return dict(parts, launches=sum(p["launches"] for p in parts.values()),
                 steps=sum(p["steps"] for p in parts.values()))
+
+
+def host_fold(plans, num_nodes: int, sim_seconds: float, seed0: int = 0) -> dict:
+    """The differential's host half (``explore.differential.host_outcomes``)
+    over fault plans compiled beforehand, importing no torch: the port's
+    raft example once per seed (``seed0 + i`` under ``plans[i]``),
+    hard-stopped at ``sim_seconds``, each history checked against
+    ``ElectionSpec``; the outcome as ``TierOutcome``'s fields."""
+    from madsim_tpu_torch.examples import raft_host
+    from madsim_tpu_torch.oracle import ElectionSpec, check_history
+
+    espec = ElectionSpec()
+    elected = no_leader = violating = total = rejects = mismatches = 0
+    for i, plan in enumerate(plans):
+        out = raft_host.run_seed_with_plan(seed0 + i, [tuple(e) for e in plan], n=num_nodes,
+                                           sim_seconds=sim_seconds, extend=False)
+        n_elec = out["leaders_elected"]
+        total += n_elec
+        elected += n_elec > 0
+        no_leader += n_elec == 0
+        vio = out["violations"] > 0
+        violating += vio
+        bad = not check_history(out["history"], espec).ok
+        rejects += bad
+        mismatches += bad != vio
+    return {"elected_seeds": elected, "no_leader_seeds": no_leader,
+            "violation_seeds": violating, "elections_total": total, "commits_total": 0,
+            "hist_reject_seeds": rejects, "hist_mismatch_seeds": mismatches,
+            "hist_overflow_seeds": 0, "overflow_seeds": 0}
+
+
+def host_child(path: str) -> int:
+    """Phase 18 (a)'s second run, in a fresh interpreter started under
+    ``MADSIM_NO_NATIVE=1``: ``host_fold`` over the plans in ``path``,
+    timed, printed as JSON with whether the compiled core loaded and
+    whether torch was imported (neither may be)."""
+    with open(path) as f:
+        job = json.load(f)
+    t = time.perf_counter()
+    outcome = host_fold(job["plans"], job["num_nodes"], job["sim_seconds"], job["seed0"])
+    seconds = time.perf_counter() - t
+    core = sys.modules["madsim_tpu_torch.time"]._simloop is not None
+    print(json.dumps({"outcome": outcome, "seconds": seconds, "core": core,
+                      "torch": "torch" in sys.modules}))
+    return 0
+
+
+def shim_programs():
+    """``tests/_torch_shim_programs.py``: the shim programs of the port's
+    parity tests, which import neither package."""
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import _torch_shim_programs
+
+    return _torch_shim_programs
+
+
+def phase_native(dev, host=NATIVE_HOST_RUNS[0], lanes: int = NATIVE_DRAW_LANES[0],
+                 shim_seeds: int = SHIM_RUNS[0], card: str = "") -> dict:
+    """Phase 18, the host tier on its compiled core: (a) the differential's
+    first gate spec over ``host`` host seeds on the core and, in a fresh
+    interpreter, without it, both equal to ``differential_host.json``; (b)
+    ``rng.event_bits`` of ``lanes`` seed keys on ``dev`` equal word for
+    word to the native threefry; (c) the shim programs over
+    ``shim_seeds`` seeds equal to ``host_shims.json``."""
+    import tempfile
+
+    import torch
+
+    import madsim_tpu_torch as ms
+    from madsim_tpu_torch import explore, faults, native
+    from madsim_tpu_torch.engine import rng
+    from madsim_tpu_torch.explore import differential
+
+    if ms.time._simloop is None or ms.time._simloop is not native.simloop():
+        raise SystemExit(f"phase 18: the host tier is not on its compiled core: "
+                         f"{native.build_error()}")
+    seconds, out = {}, {}
+
+    # (a) host seeds/s on the core and in pure Python
+    spec = differential.gate_specs()[0]
+    dcfg = diff_config(explore, host)
+    want = load_golden(DIFF_HOST_GOLDEN)["host"][differential.host_key(spec, dcfg)]
+    seeds = range(dcfg.seed0, dcfg.seed0 + dcfg.seeds)
+    t0 = time.perf_counter()
+    plans = [faults.compile_host(spec, dcfg.num_nodes, s) for s in seeds]
+    compile_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    on_core = host_fold(plans, dcfg.num_nodes, dcfg.sim_seconds, dcfg.seed0)
+    core_s = time.perf_counter() - t
+    if on_core != want:
+        raise SystemExit(f"phase 18 (a) on the core: {on_core} != {DIFF_HOST_GOLDEN}: {want}")
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as d:
+        path = os.path.join(d, "plans.json")
+        with open(path, "w") as f:
+            json.dump({"plans": plans, "num_nodes": dcfg.num_nodes,
+                       "sim_seconds": dcfg.sim_seconds, "seed0": dcfg.seed0}, f)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.host_child(sys.argv[1]))", path],
+            cwd=HERE, env=dict(os.environ, MADSIM_NO_NATIVE="1"), capture_output=True,
+            text=True, timeout=900)
+        child_wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 18 (a): the MADSIM_NO_NATIVE=1 child failed:\n{proc.stderr}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child["core"] or child["torch"]:
+        raise SystemExit(f"phase 18 (a): the child loaded the core or torch: {child}")
+    if child["outcome"] != want:
+        raise SystemExit(f"phase 18 (a) without the core: {child['outcome']} != {want}")
+    n = len(plans)
+    out["core_seeds_per_s"] = n / core_s
+    out["python_seeds_per_s"] = n / child["seconds"]
+    seconds["a"] = time.perf_counter() - t0
+    log(f"phase 18 (a) {n} host seeds of gate_specs()[0] ({diff_key(host)}), = "
+        f"{DIFF_HOST_GOLDEN} both ways: compiled core {core_s:.6f} s, "
+        f"{out['core_seeds_per_s']:.3f} host seeds/s; pure Python (MADSIM_NO_NATIVE=1, fresh "
+        f"interpreter, no torch) {child['seconds']:.6f} s, {out['python_seeds_per_s']:.3f} host "
+        f"seeds/s (child wall {child_wall:.3f} s); core / Python = "
+        f"{out['core_seeds_per_s'] / out['python_seeds_per_s']:.3f}; plans compiled in "
+        f"{compile_s:.6f} s; {card}")
+
+    # (b) the device draw stream replayed natively
+    t0 = time.perf_counter()
+    keys = rng.seed_key(torch.arange(lanes, dtype=torch.int64, device=dev))
+    words = {}
+    for ctr in NATIVE_CTRS:
+        ctrs = torch.full((lanes,), ctr, dtype=torch.int64, device=dev)
+        words[ctr] = rng.event_bits(keys, ctrs, NATIVE_DRAW_WORDS).cpu().tolist()
+    dev_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    bad = []
+    for ctr in NATIVE_CTRS:
+        for s in range(lanes):
+            k = native.fold_in((s >> 32) & 0xFFFFFFFF, s & 0xFFFFFFFF, ctr)
+            if native.random_bits(k[0], k[1], NATIVE_DRAW_WORDS) != words[ctr][s]:
+                bad.append((s, ctr))
+    host_s = time.perf_counter() - t
+    if bad:
+        raise SystemExit(f"phase 18 (b): {len(bad)} (seed, ctr) draw rows differ, first {bad[:4]}")
+    out["draw_words"] = lanes * len(NATIVE_CTRS) * NATIVE_DRAW_WORDS
+    seconds["b"] = time.perf_counter() - t0
+    log(f"phase 18 (b) rng.event_bits on {dev.type} of {lanes} seed keys at counters "
+        f"{list(NATIVE_CTRS)}, {NATIVE_DRAW_WORDS} words each: all {out['draw_words']} words "
+        f"= native.fold_in + threefry2x32_batch ({dev.type} {dev_s:.6f} s with the copy out, "
+        f"native {host_s:.6f} s)")
+
+    # (c) the shims on the core
+    shims = shim_programs()
+    golden = load_golden(SHIMS_GOLDEN)[f"seeds={shim_seeds}"]
+    t = time.perf_counter()
+    got = {name: shims.digest(ms, program, shim_seeds) for name, program in shims.SMOKE.items()}
+    seconds["c"] = time.perf_counter() - t
+    wrong = sorted(name for name in golden if got.get(name) != golden[name])
+    if wrong or sorted(got) != sorted(golden):
+        raise SystemExit(f"phase 18 (c): {wrong or sorted(got)} != {SHIMS_GOLDEN}")
+    runs = len(got) * shim_seeds
+    out["programs_per_s"] = runs / seconds["c"]
+    log(f"phase 18 (c) {len(got)} shim programs ({', '.join(got)}) x {shim_seeds} seeds on the "
+        f"compiled core: logs, draws, virtual ns and outputs = {SHIMS_GOLDEN}; {runs} runs in "
+        f"{seconds['c']:.6f} s, {out['programs_per_s']:.3f} programs/s; {card}")
+    log(f"phase 18 seconds: {json.dumps({k: round(v, 6) for k, v in seconds.items()})}")
+    return dict(out, seconds=seconds, shims=got)
 
 
 def sm_clock_hz() -> float:
@@ -2101,7 +2314,18 @@ def main() -> int:
         print("chip_smoke: run from a checkout that holds madsim_tpu_torch/", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    # importing the package builds the host tier's compiled core
+    # (native/simcore.cpp and simloop.c, into madsim_tpu_torch/_build/native)
+    t0 = time.perf_counter()
+    import madsim_tpu_torch as ms
+    from madsim_tpu_torch import native
     from madsim_tpu_torch.engine import cuda_build, cuda_megasweep, cuda_queue
+
+    native_s = time.perf_counter() - t0
+    if not native.available() or native.simloop() is None or ms.time._simloop is None:
+        print(f"chip_smoke: the host tier's compiled core did not build or load:\n"
+              f"{native.build_error()}", file=sys.stderr)
+        return 1
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -2121,6 +2345,14 @@ def main() -> int:
         for job in [pool.submit(cuda_queue.build), pool.submit(cuda_megasweep.build)]:
             job.result()
     log(f"built pop_min and megasweep in {time.perf_counter() - t0:.3f} s")
+    import sysconfig
+
+    include = sysconfig.get_paths()["include"]
+    built = {k: round(v, 3) for k, v in native.BUILD_SECONDS.items()}
+    log(f"host core: {built or 'an identical build was loaded'} s of gcc/g++ "
+        f"({native.simloop().__file__}; Python.h under {include}: "
+        f"{os.path.exists(os.path.join(include, 'Python.h'))}); the import that built it "
+        f"took {native_s:.3f} s")
     for name in ("pop_min", "megasweep"):
         log(f"[{name}] " + cuda_build.LOGS.get(name, "(an identical build was loaded)").strip())
 
@@ -2153,6 +2385,7 @@ def main() -> int:
     campaigned = timed(15, phase_campaign, dev)
     explored = timed(16, phase_explore, dev, card=f"; {smi}")
     crossed = timed(17, phase_cross_tier, dev, card=smi)
+    timed(18, phase_native, dev, card=smi)
     per_phase = {3: launches, 8: grid["launches"], 9: checked["launches"],
                  10: kafka_out["launches"], 11: s3_out["launches"],
                  12: kafka_checked["launches"], 13: streamed["launches"],

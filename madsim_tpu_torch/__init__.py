@@ -24,9 +24,15 @@ The host tier sits beside it at the reference's module names: ``rand``
 clocks routed to the simulation), ``net`` and ``fs`` (the network and
 disk simulators), ``sync``, ``buggify``, ``signal``, ``builder``
 (``Builder``, ``@sim_test``, the ``MADSIM_TEST_*`` variables), ``faults``
-(``compile_host`` and the host fault supervisor) and ``examples`` (the
-host-tier raft workload). It runs on the CPU by design and imports
-numpy only; its names are exported here as the reference exports them.
+(``compile_host`` and the host fault supervisor), ``native`` (the
+compiled core: ``simloop.c``'s executor loop, timers and futures and
+``simcore.cpp``'s threefry, built at first use into the git-ignored
+``_build/native/``; ``MADSIM_NO_NATIVE=1`` runs the pure-Python loop
+with the same schedules), ``tokio`` (the madsim-tokio façade), the
+simulation-mode ecosystem shims ``grpc``, ``etcd``, ``kafka`` and ``s3``
+and ``examples`` (the host-tier raft workload, the greeter and the KV
+store). It runs on the CPU by design and imports numpy only; its names
+are exported here as the reference exports them.
 
 Every entry point takes ``device=None``; ``None`` means CUDA and raises
 when no GPU is present — it never falls back to the CPU. Pass

@@ -97,6 +97,22 @@ class Future:
         return self.result()
 
 
+_PyFuture = Future
+
+# Swap in the compiled Future (native/simloop.c) when available: same
+# contract (state machine, FIFO wakers, __await__ yields self until
+# resolved), with set_result/subscribe/__await__ running in C.  The
+# schedule is unchanged — wakers fire in the same order either way.
+try:
+    from . import native as _native
+
+    _simloop = _native.simloop()
+except Exception:  # pragma: no cover - native tier is always optional
+    _simloop = None
+if _simloop is not None:
+    Future = _simloop.Future  # type: ignore[misc]
+
+
 class JoinHandle(Future):
     """Handle to a spawned task (sim/task/join.rs).
 

@@ -58,7 +58,7 @@ class Task:
         "cancelled",
         "finished",
         "_executor",
-        "_ready_items",  # direct list ref of the ready queue (fast wake)
+        "_ready_items",  # direct list ref for the default queue (fast wake)
     )
 
     def __init__(
@@ -79,14 +79,19 @@ class Task:
         self.cancelled = False
         self.finished = False
         self._executor = executor
-        self._ready_items = executor.ready._items
+        ready = executor.ready
+        self._ready_items = ready._items if type(ready) is _PyReadyQueue else None
 
     def wake(self) -> None:
         """Enqueue this task for polling (idempotent while scheduled)."""
         if self.finished or self.scheduled:
             return
         self.scheduled = True
-        self._ready_items.append(self)  # skip two method dispatches
+        items = self._ready_items
+        if items is not None:
+            items.append(self)  # default queue: skip two method dispatches
+        else:
+            self._executor.ready.append(self)
 
     def abort(self) -> None:
         """tokio ``AbortHandle::abort`` — mark cancelled and wake so the
@@ -163,13 +168,59 @@ class _PyReadyQueue:
         return len(self._items)
 
 
+class _NativeReadyQueue:
+    """C++ swap-remove queue (native.ReadyQueue); pop indices
+    still come from the Python GlobalRng, so schedules are identical."""
+
+    __slots__ = ("_q", "_tasks")
+
+    def __init__(self) -> None:
+        from .native import ReadyQueue
+
+        self._q = ReadyQueue()
+        self._tasks: Dict[int, Task] = {}
+
+    def append(self, task: "Task") -> None:
+        self._tasks[task.id] = task
+        self._q.push(task.id)
+
+    def swap_remove(self, idx: int) -> "Task":
+        return self._tasks.pop(self._q.swap_remove(idx))
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+
+def _make_ready_queue():
+    import os
+
+    if os.environ.get("MADSIM_NATIVE"):
+        from . import native
+
+        if native.available():
+            return _NativeReadyQueue()
+    return _PyReadyQueue()
+
+
 class Executor:
     """The deterministic event loop (ref ``Executor``, task/mod.rs:43-317)."""
 
     def __init__(self, rng: GlobalRng, time: TimeHandle):
         self.rng = rng
         self.time = time
-        self.ready = _PyReadyQueue()
+        self.ready = _make_ready_queue()
+        # compiled ready-loop driver (native/simloop.c) — available when
+        # the time core is compiled and the default Python queue is in use
+        self._cloop = None
+        core = getattr(time, "_core", None)
+        if core is not None and type(self.ready) is _PyReadyQueue:
+            from . import native as _native
+
+            sl = _native.simloop()
+            if sl is not None:
+                self._cloop = sl.Loop(
+                    self, self.ready._items, rng, core, context._tls
+                )
         self.nodes: Dict[NodeId, NodeInfo] = {}
         self._next_node_id = 1
         self._next_task_id = 1
@@ -217,6 +268,12 @@ class Executor:
         """Run ``coro`` as the main task until completion
         (ref ``Executor::block_on``, task/mod.rs:220-260)."""
         main = self.spawn_on(self.main_node, coro, name="main", spawn_site="main")
+        if self._cloop is not None:
+            # the whole inner loop is compiled (ref task/mod.rs:220-260);
+            # it re-reads self.time_limit_ns each iteration and raises via
+            # _raise_time_limit, so mid-sim set_time_limit behaves exactly
+            # like the Python loop below
+            return self._cloop.run(main, DeadlockError, 50)
         while True:
             self.run_all_ready()
             if main.done():
@@ -239,12 +296,17 @@ class Executor:
         """Drain the ready queue in random order
         (ref ``run_all_ready``, task/mod.rs:263-316).
 
-        Inlines swap_remove and the 50-100 ns jitter advance; pop indices
-        and jitter come from the same GlobalRng draws in the same order as
-        the reference's queue backends, so schedules are byte-identical."""
+        The Python-queue fast path inlines swap_remove and the 50-100 ns
+        jitter advance; pop indices and jitter still come from the same
+        GlobalRng draws in the same order, so schedules are byte-identical
+        with the method-dispatch path (and with MADSIM_NATIVE)."""
+        ready = self.ready
         rng_next = self.rng.next_u64
         time = self.time
-        items = self.ready._items
+        items = ready._items if type(ready) is _PyReadyQueue else None
+        if items is None:
+            self._run_all_ready_generic()
+            return
         while items:
             n = len(items)
             # random swap-remove pop (ref sim/utils/mpsc.rs:73-83);
@@ -269,6 +331,27 @@ class Executor:
             # inlined gen_range(50, 101)
             time.advance_ns(50 + (rng_next() * 51 >> 64))
 
+    def _run_all_ready_generic(self) -> None:
+        """Method-dispatch drain for non-default queue backends
+        (MADSIM_NATIVE) — same draws, same order as the fast path."""
+        ready = self.ready
+        rng = self.rng
+        while len(ready):
+            idx = rng.gen_range(0, len(ready))
+            task = ready.swap_remove(idx)
+            task.scheduled = False
+            if task.finished:
+                continue
+            node = task.node
+            if task.cancelled or node.killed:
+                self._drop_task(task)
+                continue
+            if node.paused:
+                node.paused_tasks.append(task)
+                continue
+            self._poll(task)
+            self.time.advance_ns(rng.gen_range(50, 101))
+
     def _poll(self, task: Task) -> None:
         prev = context.swap_task(task)
         try:
@@ -292,6 +375,34 @@ class Executor:
     def _finish(self, task: Task) -> None:
         task.finished = True
         task.node.tasks.pop(task.id, None)
+
+    # -- callbacks for the compiled loop (native/simloop.c) ---------------
+
+    def _complete(self, task: Task, value: Any) -> None:
+        """Task coroutine returned ``value`` (the StopIteration branch)."""
+        self._finish(task)
+        task.join.set_result(value)
+
+    def _raise_time_limit(self) -> None:
+        """Raise the TimeLimitError the Python loop would (called by the
+        compiled loop when the clock passes ``time_limit_ns``)."""
+        raise TimeLimitError(
+            f"simulated time limit exceeded "
+            f"({self.time_limit_ns / 1e9:.3f}s of virtual time)"
+        )
+
+    def _poll_raised(self, task: Task, exc: BaseException) -> bool:
+        """Exception out of a poll; returns False to propagate (the
+        KeyboardInterrupt/SystemExit path, mirroring ``except Exception``)."""
+        if isinstance(exc, _TaskExit):
+            self._finish(task)
+            task.join.set_result(None)
+            return True
+        if isinstance(exc, Exception):
+            self._finish(task)
+            self._on_panic(task, exc)
+            return True
+        return False
 
     def _drop_task(self, task: Task) -> None:
         """Drop a cancelled/killed task's coroutine, running its ``finally``

@@ -122,6 +122,54 @@ class _PyTimerQueue:
         return entry
 
 
+class _NativeTimerQueue:
+    """Native C++ heap backend (native.TimerHeap) — identical
+    (deadline, insertion-seq) ordering, selected with MADSIM_NATIVE=1."""
+
+    __slots__ = ("_heap", "_entries", "_next_id")
+
+    def __init__(self) -> None:
+        from .native import TimerHeap
+
+        self._heap = TimerHeap()
+        self._entries: dict = {}
+        self._next_id = 0
+
+    def push(self, entry: _TimerEntry) -> None:
+        self._next_id += 1
+        self._entries[self._next_id] = entry
+        self._heap.push(entry.deadline_ns, self._next_id)
+
+    def peek(self) -> Optional[_TimerEntry]:
+        while True:
+            top = self._heap.peek()
+            if top is None:
+                return None
+            entry = self._entries[top[1]]
+            if entry.cancelled:
+                self._heap.pop()
+                del self._entries[top[1]]
+                continue
+            return entry
+
+    def pop(self) -> Optional[_TimerEntry]:
+        if self.peek() is None:
+            return None
+        _d, id = self._heap.pop()
+        return self._entries.pop(id)
+
+
+def _make_timer_queue():
+    import os
+
+    if os.environ.get("MADSIM_NATIVE"):
+        from . import native
+
+        if native.available():
+            return _NativeTimerQueue()
+    return _PyTimerQueue()
+
+
 class TimeHandle:
     """Virtual clock + binary-heap timer queue (time/mod.rs:21-230)."""
 
@@ -133,7 +181,7 @@ class TimeHandle:
             + rng.gen_range(0, 365 * 24 * 3600) * NANOS_PER_SEC
         )
         self._clock_ns = 0  # monotonic ns since sim start
-        self._q = _PyTimerQueue()
+        self._q = _make_timer_queue()
         self._skew = {}  # node id -> (num, den) clock-skew ratio
         rng._now_ns = lambda: self._clock_ns
 
@@ -207,9 +255,10 @@ class TimeHandle:
         clock = self._clock_ns = self._clock_ns + delta_ns
         # fast path: nothing due (runs once per executor poll) — a
         # cancelled head entry compares the same, so skipping is correct
-        heap = self._q._heap
-        if not heap or heap[0][0] > clock:
-            return
+        heap = getattr(self._q, "_heap", None)
+        if type(heap) is list:
+            if not heap or heap[0][0] > clock:
+                return
         self._fire_due()
 
     def advance(self, seconds: float) -> None:
@@ -227,10 +276,77 @@ class TimeHandle:
         return True
 
 
+# -- compiled time core (native/simloop.c) ---------------------------------
+
+try:
+    from . import native as _native
+
+    _simloop = _native.simloop()
+except Exception:  # pragma: no cover - native tier is always optional
+    _simloop = None
+if _simloop is not None:
+    _simloop._configure(Instant)  # lets the C Sleep build .deadline Instants
+
+
+class _NativeTimeHandle(TimeHandle):
+    """TimeHandle over the compiled clock + timer heap (native/simloop.c).
+
+    Identical (deadline, insertion-seq) ordering and jump semantics as the
+    Python heapq path — schedules are byte-identical with the core on or
+    off (MADSIM_NO_NATIVE=1)."""
+
+    def __init__(self, rng: GlobalRng):
+        # same epoch draw as the base class, so the RNG stream is identical
+        self._epoch_ns = (
+            _EPOCH_2022_S * NANOS_PER_SEC
+            + rng.gen_range(0, 365 * 24 * 3600) * NANOS_PER_SEC
+        )
+        self._core = core = _simloop.Timers()
+        self._q = None  # the heap lives in the core
+        self._skew = {}  # node id -> (num, den) clock-skew ratio
+        rng._now_ns = lambda: core.clock
+
+    @property
+    def now_ns(self) -> int:
+        return self._core.clock
+
+    def now_instant(self) -> Instant:
+        return Instant(self._core.clock)
+
+    def now_time_ns(self) -> int:
+        return self._epoch_ns + self._core.clock
+
+    def elapsed(self) -> float:
+        return self._core.clock / NANOS_PER_SEC
+
+    def add_timer_at_ns(self, deadline_ns: int, callback: Callable[[], None]):
+        return self._core.push(deadline_ns, callback)
+
+    def add_timer_ns(self, delay_ns: int, callback: Callable[[], None]):
+        core = self._core
+        return core.push(core.clock + max(0, delay_ns), callback)
+
+    def next_deadline_ns(self) -> Optional[int]:
+        return self._core.peek_deadline()
+
+    def _fire_due(self) -> int:
+        return self._core.fire_due()
+
+    def advance_ns(self, delta_ns: int) -> None:
+        self._core.advance_ns(delta_ns)
+
+    def advance_to_next_event(self) -> bool:
+        return self._core.advance_to_next_event(_JUMP_EPSILON_NS)
+
+
 def make_time_handle(rng: GlobalRng) -> TimeHandle:
-    """The runtime's TimeHandle factory. The port carries the pure-Python
-    clock and timer heap only; the reference's compiled core gives the
-    same schedules (same (deadline, insertion-seq) order and jumps)."""
+    """The runtime's TimeHandle factory: compiled core by default,
+    pure Python under MADSIM_NO_NATIVE=1 (or MADSIM_NATIVE=1, which
+    selects the older ctypes heap instead)."""
+    import os
+
+    if _simloop is not None and not os.environ.get("MADSIM_NATIVE"):
+        return _NativeTimeHandle(rng)
     return TimeHandle(rng)
 
 
@@ -288,7 +404,11 @@ class Sleep(Future):
 
 
 def _new_sleep(t: TimeHandle, deadline_ns: int):
-    """Sleep factory (lazy first-subscribe timer arming)."""
+    """Sleep factory: the C Sleep on the compiled core, else the Python
+    one — same lazy first-subscribe timer arming either way."""
+    core = getattr(t, "_core", None)
+    if core is not None:
+        return _simloop.Sleep(core, deadline_ns)
     return Sleep(t, deadline_ns)
 
 
@@ -322,7 +442,10 @@ def sleep(seconds: float) -> Sleep:
             f = t._skew.get(task.node.id)
             if f is not None:
                 ns = ns * f[0] // f[1]
-    return Sleep(t, t._clock_ns + ns)
+    core = getattr(t, "_core", None)
+    if core is not None:
+        return _simloop.Sleep(core, core.clock + ns)
+    return Sleep(t, t.now_ns + ns)
 
 
 def sleep_until(deadline: Instant) -> Sleep:
@@ -463,7 +586,9 @@ def now_instant() -> Instant:
     h = getattr(_ctx_tls, "handle", None)
     if h is None:
         current_handle()  # raises NoContextError
-    return Instant(h.time._clock_ns)
+    t = h.time
+    core = getattr(t, "_core", None)
+    return Instant(core.clock if core is not None else t._clock_ns)
 
 
 def now() -> float:

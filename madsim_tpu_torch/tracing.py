@@ -65,6 +65,11 @@ class Tracer:
     def install(self, runtime: Any) -> "Tracer":
         executor = runtime.executor
         tracer = self
+        # tracing instruments every poll, so the run must take the Python
+        # loop — the compiled core (native/simloop.c) steps coroutines in
+        # C and would bypass the _poll wrapper below. Schedules are
+        # byte-identical either way; only wall-clock differs.
+        executor._cloop = None
         original_poll = executor._poll
 
         def traced_poll(task: Any) -> None:

@@ -1,14 +1,22 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py):
 the reference's leaves as numpy (typed keys as their key data), exact
-leaf comparison, and reference -> port config conversion."""
+leaf comparison, reference -> port config conversion, and the host
+tier's ``both()``: one program under both packages' ``Runtime(seed)``
+with equal determinism logs, draw counts, virtual time and outputs."""
 
+import datetime
 import hashlib
 import json
+import os
+import random
+import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from _torch_shim_programs import record as run
+from _torch_shim_programs import sub  # noqa: F401 (re-exported for the host tests)
 from madsim_tpu.engine import faults as rfaults
 from madsim_tpu_torch.engine import core as pcore
 from madsim_tpu_torch.engine import faults as pfaults
@@ -137,3 +145,32 @@ def reference_curve(seeds: int, chunk_per_device: int, counts=(1, 2)) -> dict:
         shas[str(n)], unique[str(n)] = sha, totals["hist_unique"]
     return {"report_sha256": shas, "hist_unique": unique,
             "bytes_invariant": curve["bytes_invariant"]}
+
+
+# ---------------------------------------------------------------------------
+# the host tier: one program, both packages
+
+ORIGINALS = (time.time, random.random, datetime.datetime, datetime.date, os.urandom)
+
+
+def assert_stdlib_restored():
+    assert (time.time, random.random, datetime.datetime, datetime.date,
+            os.urandom) == ORIGINALS
+
+
+def both(program, seed, config=None):
+    """The reference's and the port's runs of one program (one after the
+    other: the stdlib interposition is global, so they never nest), held
+    equal."""
+    import madsim_tpu as R
+    import madsim_tpu_torch as P
+
+    ref = run(R, program, seed, config)
+    assert_stdlib_restored()
+    port = run(P, program, seed, config)
+    assert_stdlib_restored()
+    assert port["now_ns"] == ref["now_ns"]
+    assert port["draws"] == ref["draws"]
+    assert port["log"] == ref["log"]
+    assert port["out"] == ref["out"]
+    return ref

@@ -8,64 +8,30 @@ under ``madsim_tpu_torch.Runtime(seed)``, one after the other (the stdlib
 interposition is global, so the two runs never nest), and holds the
 determinism log (every rng draw hashed with its virtual time), the draw
 count, the final virtual nanoseconds and the program's outputs equal.
-The reference runs here with its compiled core as it loads by default;
-``test_parity_without_the_reference_native_tier`` repeats every program
-in a fresh interpreter under ``MADSIM_NO_NATIVE=1`` (the variable is read
-when the reference's native library loads). After every pair of runs the
+Both packages run here on their compiled cores (``native/simloop.c``)
+as they load by default; ``test_parity_without_the_reference_native_tier``
+repeats every program, and every shim program of
+``_torch_shim_programs.py``, in a fresh interpreter under
+``MADSIM_NO_NATIVE=1`` (read when each package's native core loads, so
+both run their pure-Python loops there). After every pair of runs the
 stdlib's ``time.time``, ``random.random`` and ``datetime.datetime`` must
 be the originals again.
 """
 
-import datetime
-import importlib
 import json
 import os
 import random
 import subprocess
 import sys
-import time
 
 import pytest
 
 import madsim_tpu as R
 import madsim_tpu_torch as P
+from _torch_parity import assert_stdlib_restored, both, run, sub
 
 PKGS = (R, P)
 HERE = os.path.dirname(os.path.abspath(__file__))
-ORIGINALS = (time.time, random.random, datetime.datetime, datetime.date, os.urandom)
-
-
-def sub(ms, name):
-    return importlib.import_module(f"{ms.__name__}.{name}")
-
-
-def assert_stdlib_restored():
-    assert (time.time, random.random, datetime.datetime, datetime.date,
-            os.urandom) == ORIGINALS
-
-
-def run(ms, program, seed, config=None):
-    """One run of ``program(ms)`` under ``ms.Runtime(seed)`` with the
-    determinism log on."""
-    cfg = None if config is None else sub(ms, "config").Config.from_dict(config)
-    rt = ms.Runtime(seed=seed, config=cfg)
-    rt.rng.enable_log()
-    out = rt.block_on(program(ms))
-    return {"out": out, "now_ns": rt.time.now_ns, "draws": rt.rng._draw_count,
-            "log": rt.rng.take_log()}
-
-
-def both(program, seed, config=None):
-    """The reference's and the port's runs of one program, held equal."""
-    ref = run(R, program, seed, config)
-    assert_stdlib_restored()
-    port = run(P, program, seed, config)
-    assert_stdlib_restored()
-    assert port["now_ns"] == ref["now_ns"]
-    assert port["draws"] == ref["draws"]
-    assert port["log"] == ref["log"]
-    assert port["out"] == ref["out"]
-    return ref
 
 
 # ---------------------------------------------------------------------------
@@ -498,15 +464,26 @@ def test_seeds_give_different_schedules():
 
 
 def check_all() -> dict:
-    """Every program at every seed, both packages (for the subprocess)."""
+    """Every program at every seed, both packages (for the subprocess),
+    and every shim program of ``_torch_shim_programs`` at its seed."""
+    import _torch_shim_programs as shims
+
     for name, (program, config) in sorted(PROGRAMS.items()):
         for seed in SEEDS:
             both(program, seed, config)
-    return {"programs": len(PROGRAMS), "native": sub(R, "time")._simloop is not None}
+    for name, (program, seed) in sorted(shims.PROGRAMS.items()):
+        both(program, seed)
+    return {"programs": len(PROGRAMS) + len(shims.PROGRAMS),
+            "native": [sub(ms, "time")._simloop is not None for ms in PKGS]}
 
 
 def test_parity_without_the_reference_native_tier():
-    assert sub(R, "time")._simloop is not None, "the reference's compiled core did not load"
+    """Both packages' pure-Python loops (``MADSIM_NO_NATIVE=1`` turns off
+    both compiled cores) over every host and shim program."""
+    import _torch_shim_programs as shims
+
+    for ms in PKGS:
+        assert sub(ms, "time")._simloop is not None, f"{ms.__name__}'s compiled core did not load"
     env = dict(os.environ, MADSIM_NO_NATIVE="1", PYTHONPATH=os.path.dirname(HERE))
     code = ("import json, test_torch_host_runtime as t\n"
             "print(json.dumps(t.check_all()))\n")
@@ -514,7 +491,7 @@ def test_parity_without_the_reference_native_tier():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
-        "programs": len(PROGRAMS), "native": False}
+        "programs": len(PROGRAMS) + len(shims.PROGRAMS), "native": [False, False]}
 
 
 # ---------------------------------------------------------------------------

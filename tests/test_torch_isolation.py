@@ -24,7 +24,13 @@ HOST_MODULES = ["madsim_tpu_torch." + m for m in (
     "tracing", "interpose", "runtime", "net", "net.network", "net.netsim", "net.dns",
     "net.ipvs", "net.endpoint", "net.rpc", "net.tcp", "net.udp", "net.unix", "fs",
     "sync", "buggify", "signal", "builder", "faults", "replay", "examples",
-    "examples.raft_host",
+    "examples.raft_host", "examples.greeter", "examples.kv_store",
+    "native", "tokio",
+    "grpc", "grpc.status", "grpc.codec", "grpc.channel", "grpc.server", "grpc.client",
+    "grpc.service", "grpc.protogen",
+    "etcd", "etcd.service", "etcd.server", "etcd.client",
+    "kafka", "kafka.broker", "kafka.server", "kafka.client",
+    "s3", "s3.service", "s3.server", "s3.client",
 )]
 
 MODULES = [
@@ -127,8 +133,9 @@ def test_the_checkers_modules_import_no_torch(module):
 
 def test_the_host_tier_imports_no_torch():
     """``import madsim_tpu_torch`` and every host-tier module (the
-    runtime, net, fs, builder, faults, the raft example) leave torch out
-    of ``sys.modules``."""
+    runtime, net, fs, builder, faults, the examples, the compiled core,
+    the tokio façade and the gRPC, etcd, Kafka and S3 shims) leave torch
+    out of ``sys.modules``."""
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in ["madsim_tpu_torch"] + HOST_MODULES)
@@ -220,3 +227,23 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
     t = torch.zeros((2, 4), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         cuda_queue.pop_min_decision(t, torch.zeros((2,), dtype=torch.int64, device="meta"))
+
+
+def test_the_native_core_builds_into_the_ignored_build_dir():
+    """``native/`` builds its libraries under ``madsim_tpu_torch/_build/``
+    (which ``.gitignore`` lists), never beside its sources, so no build
+    output shows in ``git status``."""
+    from madsim_tpu_torch import native
+
+    assert native.available() and native.simloop() is not None, native.build_error()
+    build = os.path.join(PKG, "_build")
+    built = [os.path.join(root, f) for root, _, files in os.walk(PKG)
+             for f in files if f.endswith(".so")]
+    assert built and all(p.startswith(build + os.sep) for p in built), built
+    assert native.simloop().__file__.startswith(os.path.join(build, "native") + os.sep)
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        assert "madsim_tpu_torch/_build/" in f.read().split()
+    proc = subprocess.run(["git", "status", "--porcelain", "--untracked-files=all", "--",
+                           "madsim_tpu_torch"], cwd=REPO, capture_output=True, text=True)
+    if proc.returncode == 0:  # a checkout without git has no status to read
+        assert not [line for line in proc.stdout.splitlines() if ".so" in line], proc.stdout
