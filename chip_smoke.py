@@ -173,16 +173,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     logs and of the outputs, and every seed's draws and virtual ns, equal
     to the JAX package's ``host_shims.json``
     (``python tests/test_torch_shims_golden.py --write``); programs/s.
-    Phase 18 launches no kernel.
+    Phase 18 launches no kernel;
+19. the telemetry plane on the card and the real-mode twin: one
+    ``obs.Telemetry`` (a journal, a Chrome trace and a ``/metrics``
+    endpoint on a free localhost port) through (a) phase 9 (b)'s
+    stale-read cell (2,048 seeds, chunks of 1,024) on
+    ``checked_sweep(..., workers=8)``, its report equal to
+    ``etcd_checked_stale.json``, as phase 9 (b)'s is, the endpoint scraped
+    from a thread while it runs (the last scrape naming the chunk
+    counters), its wall beside phase 9 (b)'s; (b) the same cell on
+    ``driver="stream"`` (pool = chunk = 1,024), its report equal to (a)'s
+    and ``stream_rounds_total`` equal to the driver's own rounds (its
+    ``_round`` calls) and to the trace's occupancy samples; (c)
+    ``RaftConfig(num_nodes=5, crashes=1, event_mix=True)``, queue 64, at
+    16,384 seeds in one chunk and a 1 s horizon through
+    ``run_sweep_pipelined``, its report (``event_mix`` included) equal to
+    the JAX-made ``obs_event_mix.json``
+    (``python tests/test_torch_obs_drivers.py --write``) and
+    ``engine_events_by_kind_total{kind=k}`` equal to ``event_mix[k]``
+    (phase 3 checks that the default report has no ``event_mix``); then,
+    the handle closed, the trace has "device" and "host" tracks and
+    chunk 1's device span (dispatch to summary) overlaps chunk 0's host
+    check, and the journal holds one event per chunk and flush under one
+    run ID; (d) on the chip machine's CPU over localhost, with no
+    grpcio: the port's ``examples/greeter_real.py`` and one real-mode
+    etcd, Kafka (the genuine wire on ``kafka.wire.WireServer``) and S3
+    round trip and a ``kafka.probe.ProbeClient`` session against the
+    port's ``WireServer`` (``tests/_torch_real_programs.py``'s
+    ``SMOKE``), each run three times, every outcome's digest equal to
+    the JAX package's ``real_outcomes.json``; runs and seconds.
 
 Phases 10-17 print their wall seconds, seeds/s, events/s and peak device
 memory, and each zeroes pop_min's launch count before every driven run
 and checks it equals the engine steps (the ``step_batch`` calls, and in
-16-17 the replays' steps too). Every phase's seconds are printed. After
+16-17 the replays' steps too); so does phase 19. Every phase's seconds are printed. After
 the phases, both kernels' ``torch.profiler`` durations, from one profiler
 session, are printed beside their CUDA-graph times. The line before the
-last is ``{"kernels": [...]}`` (pop_min's launches summed over phases 3
-and 8-17, in 14-15 over the ranks and in 16 over the fleet's worker
+last is ``{"kernels": [...]}`` (pop_min's launches summed over phases 3,
+8-17 and 19, in 14-15 over the ranks and in 16 over the fleet's worker
 processes; its Q = 48 times beside the Q = 64 ones); the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -373,6 +401,17 @@ NATIVE_CTRS = (0, 1, 7, 123_456)
 NATIVE_DRAW_WORDS = 15
 SHIM_RUNS = (64, 8)
 SHIMS_GOLDEN = "host_shims.json"
+# phase 19: the telemetry plane on the card, over phase 9 (b)'s stale-read
+# cell (both drivers) and the flagship raft config with the device-side
+# event-mix plane on, its horizon cut from phase 3's 3 s to 1 s (the card
+# size, then the rehearsal size of its JAX-made golden); then the
+# real-mode programs of tests/_torch_real_programs.py, each run this many
+# times, against the JAX package's outcome digests
+EVENT_MIX_RUNS = ({"seeds": 16_384, "chunk": 16_384, "time_limit_ns": 1_000_000_000},
+                  {"seeds": 64, "chunk": 32, "time_limit_ns": 300_000_000})
+EVENT_MIX_GOLDEN = "obs_event_mix.json"
+REAL_REPS = (3, 1)
+REAL_GOLDEN = "real_outcomes.json"
 
 
 def log(msg: str) -> None:
@@ -656,6 +695,8 @@ def phase_main_path(dev, num_seeds: int = NUM_SEEDS):
         dev, lambda: core.run_sweep(wl, ecfg, seeds, device=dev))
     summary = raft.sweep_summary(final)
     log("flagship summary: " + json.dumps(summary, sort_keys=True))
+    if "event_mix" in summary:
+        raise SystemExit("the default flagship report carries the opt-in event_mix plane")
     if not bool(final.done.all()):
         raise SystemExit("the flagship sweep hit max_steps before every seed finished")
     if summary["events_total"] <= 0 or summary["seeds"] != num_seeds:
@@ -1154,6 +1195,7 @@ def phase_checked_sweep(dev, clean=CLEAN_RUNS[0], stale=STALE_RUNS[0],
                 telemetry=clock))
         launches, steps = launches + got, steps + calls
         reports.append(rep)
+        out[f"stale_{'device' if decode else 'host'}_decode_wall_s"] = wall
         log(f"stale-read, {'device' if decode else 'host'} decode: wall {wall:.6f} s, "
             f"{n / wall:.3f} seeds/s; {clock.split()}; {rep['hist_suspects']} suspects, "
             f"{rep['hist_unique']} unique histories checked")
@@ -2295,6 +2337,237 @@ def phase_native(dev, host=NATIVE_HOST_RUNS[0], lanes: int = NATIVE_DRAW_LANES[0
     return dict(out, seconds=seconds, shims=got)
 
 
+def event_mix_key(run: dict) -> str:
+    return f"seeds={run['seeds']},chunk={run['chunk']},horizon_ns={run['time_limit_ns']}"
+
+
+def event_mix_path(run: dict):
+    """Phase 19 (c)'s raft cell: the flagship's config with the event-mix
+    plane on (``RaftConfig(num_nodes=5, crashes=1, event_mix=True)``,
+    queue 64), at ``run``'s horizon."""
+    from madsim_tpu_torch.models import raft
+
+    cfg = raft.RaftConfig(num_nodes=5, crashes=1, event_mix=True)
+    return raft.workload(cfg), raft.engine_config(
+        cfg, queue_capacity=CAPACITY, time_limit_ns=run["time_limit_ns"], max_steps=MAX_STEPS)
+
+
+def real_programs():
+    """``tests/_torch_real_programs.py``: the real-mode programs of the
+    port's parity tests, which import neither package."""
+    shim_programs()  # puts tests/ on the path
+    import _torch_real_programs
+
+    return _torch_real_programs
+
+
+def _scraper(url: str, every_s: float = 0.25):
+    """A thread scraping ``url`` every ``every_s`` until its ``stop()``,
+    which takes one last scrape and returns every body read. Each scrape
+    renders the registry under the interpreter lock that the host-paced
+    step loop needs, so the interval is a Prometheus-like slow one."""
+    import threading
+    import urllib.request
+
+    bodies, errors, halt = [], [], threading.Event()
+
+    def run():
+        try:
+            while True:
+                last = halt.wait(every_s)
+                with urllib.request.urlopen(url, timeout=10) as r:
+                    bodies.append(r.read().decode())
+                if last:
+                    return
+        except OSError as e:
+            errors.append(e)
+
+    thread = threading.Thread(target=run, name="phase19-scrape", daemon=True)
+    thread.start()
+
+    def stop() -> list:
+        halt.set()
+        thread.join(timeout=30)
+        if thread.is_alive() or errors or not bodies:
+            raise SystemExit(f"phase 19 (a): the metrics endpoint did not answer the scraper: "
+                             f"{errors or 'no answer'}")
+        return bodies
+
+    return stop
+
+
+def _span(events: list, name: str) -> dict:
+    found = [e for e in events if e.get("ph") == "X" and e["name"] == name]
+    if not found:
+        raise SystemExit(f"phase 19: no trace span {name!r}")
+    return found[0]
+
+
+def phase_obs(dev, stale=STALE_RUNS[0], mix=EVENT_MIX_RUNS[0], workers: int = CHECK_WORKERS,
+              reps: int = REAL_REPS[0], off_wall_s=None, card: str = "") -> dict:
+    """Phase 19, the telemetry plane on the card and the real-mode twin on
+    the chip machine's CPU: one ``obs.Telemetry`` handle (journal, trace
+    and a localhost ``/metrics`` endpoint) through (a) phase 9 (b)'s
+    stale-read cell on the pipelined checked sweep, (b) the same cell on
+    ``driver="stream"`` and (c) the raft sweep with the event-mix plane;
+    then (d) the real-mode programs over localhost."""
+    import shutil
+
+    import numpy as np
+
+    import madsim_tpu_torch as ms
+    from madsim_tpu_torch import obs
+    from madsim_tpu_torch.engine import checkpoint, stream
+    from madsim_tpu_torch.models import etcd, raft
+    from madsim_tpu_torch.oracle import check, screen
+
+    seconds, out = {}, {}
+    launches = steps = 0
+    root = os.path.join(_build_dir(), "phase19")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    jpath, tpath = os.path.join(root, "journal.jsonl"), os.path.join(root, "trace.json")
+    tel = obs.Telemetry(journal=jpath, trace=tpath, http_port=0)
+
+    def kinds() -> list:
+        return [r["kind"] for r in obs.read_journal(jpath)]
+
+    # (a) the pipelined checked sweep, scraped from a thread meanwhile
+    t0 = time.perf_counter()
+    wl, ecfg = etcd_path(stale=True)
+    n, chunk = stale
+    seeds = np.arange(n, dtype=np.int64)
+    spec = etcd.history_spec()
+    with open(golden_path(True)) as f:
+        golden = json.load(f)["reports"][run_key(n, chunk)]
+    stop = _scraper(tel.server.url)
+    rep, calls, got, wall = main_path_run(dev, lambda: screen.checked_sweep(
+        wl, ecfg, seeds, spec, etcd.sweep_summary, chunk_size=chunk, workers=workers,
+        device=dev, telemetry=tel))
+    bodies = stop()
+    launches, steps = launches + got, steps + calls
+    _same_report(rep, golden, "phase 19 (a): stale-read report with telemetry vs golden")
+    chunks = -(-n // chunk)
+    if kinds() != ["run_start"] + ["chunk"] * chunks:
+        raise SystemExit(f"phase 19 (a): journal kinds {kinds()}")
+    need = [f"sweep_chunks_total {chunks}", f"sweep_seeds_done_total {n}",
+            "# TYPE oracle_screened_total counter", "# TYPE sweep_chunk_seconds histogram"]
+    missing = [line for line in need if line not in bodies[-1]]
+    if missing:
+        raise SystemExit(f"phase 19 (a): the last scrape lacks {missing}")
+    out["a"] = {"wall_s": wall, "scrapes": len(bodies), "report": rep}
+    seconds["a"] = time.perf_counter() - t0
+    log(f"phase 19 (a) stale-read checked sweep with telemetry on (journal, trace, /metrics on "
+        f"{tel.server.url}): {n} seeds in {chunks} chunks of {chunk}, report = golden, "
+        f"{calls} step_batch calls, {got} pop_min launches; wall {wall:.6f} s with telemetry "
+        f"on, phase 9 (b)'s {off_wall_s if off_wall_s is None else f'{off_wall_s:.6f}'} s with "
+        f"no handle (a timing stub); journal {chunks} chunk events under run {tel.run_id}; "
+        f"{len(bodies)} scrapes from a thread, the last naming the chunk counters; {card}")
+
+    # (b) the same cell through the stream, its rounds counted
+    t0 = time.perf_counter()
+    rounds = [0]
+    inner = stream._round
+
+    def counted(*args, **kwargs):
+        rounds[0] += 1
+        return inner(*args, **kwargs)
+
+    before = tel.registry.get("stream_rounds_total") or 0
+    stream._round = counted
+    try:
+        rep_b, calls, got, wall_b = main_path_run(dev, lambda: screen.checked_sweep(
+            wl, ecfg, seeds, spec, etcd.sweep_summary, chunk_size=chunk, workers=workers,
+            driver="stream", device=dev, telemetry=tel))
+    finally:
+        stream._round = inner
+    launches, steps = launches + got, steps + calls
+    check.shutdown_pools()
+    _same_report(rep_b, rep, "phase 19 (b): the stream's report vs (a)'s")
+    counted_rounds = (tel.registry.get("stream_rounds_total") or 0) - before
+    if counted_rounds != rounds[0] or rounds[0] <= 0:
+        raise SystemExit(f"phase 19 (b): stream_rounds_total {counted_rounds} != the driver's "
+                         f"{rounds[0]} rounds")
+    if kinds()[1 + chunks:] != ["flush"] * chunks:
+        raise SystemExit(f"phase 19 (b): journal kinds {kinds()}")
+    out["b"] = {"wall_s": wall_b, "rounds": rounds[0]}
+    seconds["b"] = time.perf_counter() - t0
+    log(f"phase 19 (b) the same cell on driver='stream' (pool = chunk = {chunk}): report = "
+        f"(a)'s, {rounds[0]} rounds = stream_rounds_total, {calls} step_batch calls, {got} "
+        f"pop_min launches, wall {wall_b:.6f} s, occupancy gauge "
+        f"{tel.registry.get('stream_occupancy')}")
+
+    # (c) the event-mix plane on the flagship raft config
+    t0 = time.perf_counter()
+    wl_m, ecfg_m = event_mix_path(mix)
+    rep_c, calls, got, wall_c = main_path_run(dev, lambda: checkpoint.run_sweep_pipelined(
+        wl_m, ecfg_m, np.arange(mix["seeds"], dtype=np.int64), raft.sweep_summary,
+        chunk_size=mix["chunk"], device=dev, telemetry=tel))
+    launches, steps = launches + got, steps + calls
+    want = load_golden(EVENT_MIX_GOLDEN)["runs"][event_mix_key(mix)]
+    if json.dumps(rep_c, sort_keys=True) != want:
+        raise SystemExit(f"phase 19 (c): event-mix report {json.dumps(rep_c, sort_keys=True)} "
+                         f"!= {EVENT_MIX_GOLDEN}: {want}")
+    mix_counts = rep_c["event_mix"]
+    by_kind = [tel.registry.get("engine_events_by_kind_total", kind=str(k))
+               for k in range(len(mix_counts))]
+    if by_kind != [float(v) for v in mix_counts] or sum(mix_counts) <= 0:
+        raise SystemExit(f"phase 19 (c): engine_events_by_kind_total {by_kind} != event_mix "
+                         f"{mix_counts}")
+    out["c"] = {"wall_s": wall_c, "event_mix": mix_counts}
+    seconds["c"] = time.perf_counter() - t0
+    log(f"phase 19 (c) raft with the event-mix plane ({event_mix_key(mix)}): report = "
+        f"{EVENT_MIX_GOLDEN}, engine_events_by_kind_total = event_mix {mix_counts}; "
+        f"{_rates('event mix', mix['seeds'], rep_c['events_total'], wall_c, calls, got, dev)}")
+
+    tel.close()
+    with open(tpath) as f:
+        events = json.load(f)["traceEvents"]
+    tracks = {e["args"]["name"] for e in events if e["ph"] == "M" and e["name"] == "thread_name"}
+    if not {"device", "host"} <= tracks:
+        raise SystemExit(f"phase 19: trace tracks {sorted(tracks)}")
+    dev_span, host_span = _span(events, f"device chunk lo={chunk}"), _span(events, "host check lo=0")
+    overlap_us = (min(dev_span["ts"] + dev_span["dur"], host_span["ts"] + host_span["dur"])
+                  - max(dev_span["ts"], host_span["ts"]))
+    if overlap_us <= 0:
+        raise SystemExit("phase 19 (a): the trace's device span of chunk 1 does not overlap the "
+                         "host check of chunk 0")
+    samples = sum(1 for e in events if e["ph"] == "C" and e["name"] == "stream occupancy")
+    if samples != rounds[0]:
+        raise SystemExit(f"phase 19 (b): {samples} occupancy samples in the trace != "
+                         f"{rounds[0]} rounds")
+    records = obs.read_journal(jpath)
+    mix_chunks = -(-mix["seeds"] // mix["chunk"])
+    if ([r["kind"] for r in records] != ["run_start"] + ["chunk"] * chunks + ["flush"] * chunks
+            + ["chunk"] * mix_chunks + ["run_end"] or {r["run"] for r in records} != {tel.run_id}):
+        raise SystemExit(f"phase 19: journal {[(r['kind'], r['run']) for r in records]}")
+    out["overlap_us"] = overlap_us
+    log(f"phase 19 trace: tracks {sorted(tracks)}; chunk 1's device span ({dev_span['dur']:.1f} "
+        f"us, dispatch to summary) holds chunk 0's host check ({host_span['dur']:.1f} us): "
+        f"{overlap_us:.1f} us in common; {samples} stream occupancy samples; journal "
+        f"{len(records)} records, all under run {tel.run_id}")
+
+    # (d) the real-mode twin over localhost
+    t0 = time.perf_counter()
+    programs = real_programs()
+    golden = load_golden(REAL_GOLDEN)
+    ran = {}
+    for name, program in programs.SMOKE.items():
+        t = time.perf_counter()
+        digests = {programs.digest(program(ms)) for _ in range(reps)}
+        ran[name] = {"runs": reps, "seconds": time.perf_counter() - t}
+        if digests != {golden[name]}:
+            raise SystemExit(f"phase 19 (d): {name}'s outcome {sorted(digests)} != "
+                             f"{REAL_GOLDEN}: {golden[name]}")
+    out["d"] = ran
+    seconds["d"] = time.perf_counter() - t0
+    log("phase 19 (d) real-mode programs over localhost, outcomes = " + REAL_GOLDEN + ": "
+        + "; ".join(f"{k} {v['runs']} runs {v['seconds']:.6f} s" for k, v in ran.items()))
+    log(f"phase 19 seconds: {json.dumps({k: round(v, 6) for k, v in seconds.items()})}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(out, launches=launches, steps=steps, seconds=seconds)
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock from nvidia-smi (the issue ceiling's clock)."""
     out = subprocess.run(
@@ -2386,11 +2659,13 @@ def main() -> int:
     explored = timed(16, phase_explore, dev, card=f"; {smi}")
     crossed = timed(17, phase_cross_tier, dev, card=smi)
     timed(18, phase_native, dev, card=smi)
+    observed = timed(19, phase_obs, dev, off_wall_s=checked["stale_host_decode_wall_s"],
+                     card=smi)
     per_phase = {3: launches, 8: grid["launches"], 9: checked["launches"],
                  10: kafka_out["launches"], 11: s3_out["launches"],
                  12: kafka_checked["launches"], 13: streamed["launches"],
                  14: meshed["launches"], 15: campaigned["launches"], 16: explored["launches"],
-                 17: crossed["launches"]}
+                 17: crossed["launches"], 19: observed["launches"]}
     launches = sum(per_phase.values())
     log(f"pop_min launches per phase (each = its engine steps: step_batch calls, summed over "
         f"the ranks in 14-15 and the workers in 16, and in 16-17 the one-lane replays' steps): "

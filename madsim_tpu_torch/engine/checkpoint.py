@@ -484,6 +484,7 @@ def run_sweep_pipelined(
         lo, k, _sha, final, susp, summary, _path = p
         if telemetry is not None:
             t_host = _time.perf_counter()
+            h0 = tracer._now_us() if tracer is not None else 0.0
         deferred[lo] = (k, summary)
         host_work.submit(
             final, lo=lo, n=k, seeds=seeds_host[lo : lo + k],
@@ -495,6 +496,13 @@ def run_sweep_pipelined(
                 "sweep_host_phase_seconds", _time.perf_counter() - t_host,
                 help="host phase (decode/check/ckpt write) per chunk",
             )
+            if tracer is not None:
+                # the reference traces no host span on this path; the
+                # port's shows each chunk's submit and budgeted check
+                tracer.complete(
+                    f"host check lo={lo}", h0, tracer._now_us() - h0,
+                    track="host", args={"lo": lo, "k": k},
+                )
 
     def flush(p) -> None:
         lo, k, sha, final, susp, summary, path = p

@@ -45,16 +45,12 @@ bit), so lanes of different ages and budgets share a pool and each
 stays bit-identical to the chunked driver.
 
 The quorum read: the reference's round tests the live count before every
-step inside one device loop. Eager torch would pay a host sync per step
-for that, so ``_round`` reads the live count once per
-``ROUND_CHECK_EVERY`` (16) steps. That is exact for every lane: a lane
-that retires mid-interval is frozen (done lanes are no-ops and
-over-budget lanes step as done), so the extra steps change no retired
-lane's state. Only the round and refill schedule moves (a round may run
-up to 15 steps past its quorum), which the report is invariant to;
-``stats`` and a mid-run snapshot's pool can differ from the reference's.
-16 keeps the syncs to one per 16 eager steps while bounding the quorum's
-lag at 15 frozen steps.
+step inside one device loop and leaves at the first step where it has
+fallen to the quorum. ``_round`` reads the count on the host before
+every step, so a round leaves after the reference's number of steps, and
+the round and refill schedule, ``stats``, the stream's telemetry and a
+mid-run snapshot's pool are the reference's (PERF.md has what the read
+costs on the card).
 
 ``device=None`` means CUDA (``madsim_tpu_torch.resolve_device``); with
 a mesh the pool lives on the mesh's devices.
@@ -72,10 +68,6 @@ from .. import resolve_device
 from . import core, tree
 from .core import EngineConfig, EngineState, Workload
 from .ops import U32
-
-# steps between two reads of a round's live count (see the module doc)
-ROUND_CHECK_EVERY = 16
-
 
 def _freeze_step(workload: Workload, cfg: EngineConfig, s: EngineState, budget):
     """One batch step with the per-lane budget freeze: an over-budget
@@ -98,16 +90,14 @@ def _live(state: EngineState, budget, mesh=None) -> int:
 def _round(workload: Workload, cfg: EngineConfig, round_steps: int, state: EngineState,
            budget, stop_live: int, mesh=None):
     """One round: up to ``round_steps`` events for every live lane (not
-    done and under its own budget), leaving once the live count, read
-    every ``ROUND_CHECK_EVERY`` steps, is at most ``stop_live``. With
-    ``mesh`` the state and budget are the local lanes and the count is
-    summed over the ranks, so every rank runs the same steps."""
+    done and under its own budget), leaving after the first step at which
+    the live count, read before every step, is at most ``stop_live``.
+    With ``mesh`` the state and budget are the local lanes and the count
+    is summed over the ranks, so every rank runs the same steps."""
     i = 0
     while i < round_steps and _live(state, budget, mesh) > stop_live:
-        k = min(ROUND_CHECK_EVERY, round_steps - i)
-        for _ in range(k):
-            state = _freeze_step(workload, cfg, state, budget)
-        i += k
+        state = _freeze_step(workload, cfg, state, budget)
+        i += 1
     return state
 
 
@@ -479,6 +469,9 @@ def stream_sweep(
                 if telemetry is not None:
                     telemetry.observe("stream_flush_seconds", _time.perf_counter() - t_flush,
                                       help="virtual-chunk flush (summary+host work)")
+                    if tracer is not None:
+                        tracer.complete(f"flush lo={next_flush_lo}", f0, tracer._now_us() - f0,
+                                        track="host", args={"lo": next_flush_lo, "k": k})
             else:
                 if host_work is not None:
                     extra = host_work(chunk_state, **kwargs)

@@ -14,9 +14,13 @@ served over Endpoint connections with a request enum
   ``BaseConsumer`` (assign/seek/poll) / ``StreamConsumer``,
   ``AdminClient`` (create/delete topics)
 
-The reference's real-network modules (``wire``, the genuine Kafka binary
-protocol; ``probe``, its wire client; ``fuzz``, the wire-vs-broker
-differential) are not in this package yet: they serve the real mode.
+- :mod:`wire` — the genuine Kafka binary protocol over the same broker
+  (``SimWireServer`` on the sim tier's pipes, ``WireServer`` on the
+  shared serving core, ``LegacyWireServer`` on ``real.stream``)
+- :mod:`probe` — a minimal wire client (``ProbeClient``) over a real,
+  simulated or in-process loopback transport
+
+The wire-vs-broker differential (``fuzz``) is not in this package yet.
 """
 
 from .broker import OwnedMessage, Watermarks

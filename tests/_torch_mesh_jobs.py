@@ -347,3 +347,29 @@ def steered(mesh, seeds_per_round: int, budget: int, recorded: int, families,
     res = explore.run_steered(target, base, ccfg, scfg, report_path=report_path,
                               trace_path=trace_path, mesh=mesh)
     return json.dumps(res.records, sort_keys=True), json.dumps(res.decisions, sort_keys=True)
+
+
+# the checked sweep with a telemetry handle (tests/test_torch_obs_drivers.py)
+MESH_TELEMETRY = dict(seeds=100, chunk_per_device=16)
+
+
+def checked_telemetry(mesh, tmp: str):
+    """On every rank: the stale-read checked etcd sweep on the mesh with a
+    telemetry handle of the rank's own; (report JSON, record) of the
+    rank."""
+    from madsim_tpu_torch import obs
+    from madsim_tpu_torch.models import etcd
+    from madsim_tpu_torch.oracle import screen
+
+    from _torch_obs_record import RUN_ID, record
+
+    cfg = etcd.EtcdConfig(hist_slots=48, bug_stale_read=True)
+    ecfg = etcd.engine_config(cfg, time_limit_ns=1_000_000_000)
+    jpath = os.path.join(tmp, f"rank{mesh.rank}.jsonl")
+    tel = obs.Telemetry(journal=jpath, run_id=RUN_ID)
+    report = screen.checked_sweep(
+        etcd.workload(cfg), ecfg, np.arange(MESH_TELEMETRY["seeds"], dtype=np.int64),
+        etcd.history_spec(), etcd.sweep_summary, mesh=mesh,
+        chunk_per_device=MESH_TELEMETRY["chunk_per_device"], telemetry=tel)
+    tel.close()
+    return json.dumps(report, sort_keys=True), record(obs, tel, jpath)

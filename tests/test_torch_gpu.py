@@ -285,7 +285,9 @@ def test_stream_round_on_the_card_equals_the_cpu():
         state = stream._refill_rows(wl, ecfg, state, lanes, lanes + 1000)
         out.append(state)
     assert state_io.first_difference(*out) is None
-    assert int(out[0].ctr.min()) == 0 and int(out[0].ctr.max()) > 40
+    # the round leaves at the reference's step: the 86 lanes of budget 40
+    # retire at step 40 and the live count falls to 170 <= 200 there
+    assert int(out[0].ctr.min()) == 0 and int(out[0].ctr.max()) == 40
 
 
 @pytest.mark.gpu

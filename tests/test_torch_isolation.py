@@ -31,6 +31,11 @@ HOST_MODULES = ["madsim_tpu_torch." + m for m in (
     "etcd", "etcd.service", "etcd.server", "etcd.client",
     "kafka", "kafka.broker", "kafka.server", "kafka.client",
     "s3", "s3.service", "s3.server", "s3.client",
+    "obs", "obs.metrics", "obs.journal", "obs.export",
+    "real", "real.runtime", "real.time", "real.codec", "real.stream", "real.net", "real.fs",
+    "real.signal", "real.grpc", "real.etcd", "real.s3", "real.kafka",
+    "serve", "serve.core", "serve.framing", "serve.adapters",
+    "kafka.wire", "kafka.probe", "examples.greeter_real",
 )]
 
 MODULES = [
@@ -134,8 +139,9 @@ def test_the_checkers_modules_import_no_torch(module):
 def test_the_host_tier_imports_no_torch():
     """``import madsim_tpu_torch`` and every host-tier module (the
     runtime, net, fs, builder, faults, the examples, the compiled core,
-    the tokio façade and the gRPC, etcd, Kafka and S3 shims) leave torch
-    out of ``sys.modules``."""
+    the tokio façade, the gRPC, etcd, Kafka and S3 shims with the Kafka
+    wire and its probe, the telemetry plane, the serving core and the
+    real-mode twin) leave torch out of ``sys.modules``."""
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in ["madsim_tpu_torch"] + HOST_MODULES)
@@ -148,6 +154,41 @@ def test_the_host_tier_imports_no_torch():
         [sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
         text=True, timeout=120,
     )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the reference's real.__all__ (madsim_tpu/real/__init__.py)
+REAL_ALL = ["Endpoint", "Instant", "Runtime", "TcpEndpoint", "codec", "etcd", "fs", "grpc",
+            "interval", "kafka", "now_instant", "s3", "signal", "sleep", "spawn", "stream",
+            "timeout"]
+
+
+def test_real_imports_without_grpcio():
+    """``import madsim_tpu_torch.real`` (and the greeter) succeeds in a
+    fresh interpreter where ``grpc`` cannot be imported; only the grpcio
+    bridge needs it."""
+    code = (
+        "import sys\n"
+        "class _NoGrpc:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'grpc' or name.startswith('grpc.'):\n"
+        "            raise ImportError('grpc made unimportable')\n"
+        "sys.meta_path.insert(0, _NoGrpc())\n"
+        "import madsim_tpu_torch.real as real\n"
+        "import madsim_tpu_torch.examples.greeter_real\n"
+        "assert 'grpc' not in sys.modules\n"
+        "try:\n"
+        "    import grpc\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('grpc imported')\n"
+        "assert sorted(real.__all__) == sorted(%r)\n"
+    ) % (REAL_ALL,)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

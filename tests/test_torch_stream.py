@@ -313,9 +313,10 @@ def test_mesh_and_the_default_device():
 
 
 def test_round_reads_its_quorum_every_16_steps():
-    """``_round`` leaves at the first read after the quorum: a lane
-    budget of 3 retires every lane after 3 events, and the round stops
-    at step 16, the first read after that (the retired lanes frozen)."""
+    """``_round`` reads its quorum before every step, as the reference's
+    device loop tests it, and leaves at the first step where it is met:
+    a lane budget of 3 retires every lane after 3 events, and the round
+    stops there, after 3 steps."""
     *_, pwl, pecfg, _ = _case("raft")
     state = pcore.init_sweep(pwl, pecfg, SEEDS[:4], device="cpu")
     budget = torch.full((4,), 3, dtype=torch.int32)
@@ -331,5 +332,5 @@ def test_round_reads_its_quorum_every_16_steps():
         out = pstream._round(pwl, pecfg, 128, state, budget, stop_live=0)
     finally:
         pcore.step_batch = step
-    assert pstream.ROUND_CHECK_EVERY == 16 and len(calls) == 16
+    assert len(calls) == 3
     assert out.ctr.tolist() == [3, 3, 3, 3] and not bool(out.done.any())
