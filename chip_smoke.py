@@ -201,16 +201,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     round trip and a ``kafka.probe.ProbeClient`` session against the
     port's ``WireServer`` (``tests/_torch_real_programs.py``'s
     ``SMOKE``), each run three times, every outcome's digest equal to
-    the JAX package's ``real_outcomes.json``; runs and seconds.
+    the JAX package's ``real_outcomes.json``; runs and seconds;
+20. the wire rig on the chip machine's CPU, needing neither grpcio nor
+    aiohttp (nothing imports or probes for them), pop_min's launch count zeroed
+    before and read as 0 after: (a) ``wire_load``'s determinism report
+    (seeded sequential Kafka, S3 and framed etcd sessions on counter
+    clocks) for seeds 0-1, both server kinds and telemetry on and off,
+    each equal as bytes to the JAX-made ``wire_load_determinism.json``
+    (``python tests/test_torch_wire_load.py --write``) with both
+    replays ok; (b) ``kafka.fuzz``'s digests for seeds 0-49 on loopback
+    and 1-5 over localhost TCP, equal to ``kafka_fuzz.json``
+    (``python tests/test_torch_wire_differential.py --write``); (c) the
+    smoke rig (``SMOKE_SCENARIO``: 64 clients in 2 worker processes for
+    4 s) as a fresh subprocess, ``python -m madsim_tpu_torch.wire_load
+    --smoke --report FILE`` (this process has CUDA and torch's threads
+    and must not fork the workers): its gate and the async-vs-legacy
+    parity must hold; clients, ops, ops/s, peak connections and each
+    wire's p50/p99 are printed beside the card's name and power limit.
 
 Phases 10-17 print their wall seconds, seeds/s, events/s and peak device
 memory, and each zeroes pop_min's launch count before every driven run
 and checks it equals the engine steps (the ``step_batch`` calls, and in
-16-17 the replays' steps too); so does phase 19. Every phase's seconds are printed. After
+16-17 the replays' steps too); so does phase 19, and phase 20 checks it stays 0. Every
+phase's seconds are printed. After
 the phases, both kernels' ``torch.profiler`` durations, from one profiler
 session, are printed beside their CUDA-graph times. The line before the
 last is ``{"kernels": [...]}`` (pop_min's launches summed over phases 3,
-8-17 and 19, in 14-15 over the ranks and in 16 over the fleet's worker
+8-17, 19 and 20 (0 there), in 14-15 over the ranks and in 16 over the fleet's worker
 processes; its Q = 48 times beside the Q = 64 ones); the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -412,6 +429,14 @@ EVENT_MIX_RUNS = ({"seeds": 16_384, "chunk": 16_384, "time_limit_ns": 1_000_000_
 EVENT_MIX_GOLDEN = "obs_event_mix.json"
 REAL_REPS = (3, 1)
 REAL_GOLDEN = "real_outcomes.json"
+# phase 20: the wire rig on the chip machine's CPU; (a) the determinism
+# reports' seeds, against the JAX-made golden, (b) the Kafka fuzz's
+# golden (its seeds and ops), (c) the smoke rig's subprocess time limit
+# (the rig itself runs 4 s and about 10 s in all)
+WIRE_DET_SEEDS = (0, 1)
+WIRE_DET_GOLDEN = "wire_load_determinism.json"
+FUZZ_GOLDEN = "kafka_fuzz.json"
+WIRE_SMOKE_TIMEOUT_S = 180
 
 
 def log(msg: str) -> None:
@@ -2568,6 +2593,118 @@ def phase_obs(dev, stale=STALE_RUNS[0], mix=EVENT_MIX_RUNS[0], workers: int = CH
     return dict(out, launches=launches, steps=steps, seconds=seconds)
 
 
+def wire_programs():
+    """``tests/_torch_wire.py``: the wire programs of the port's parity
+    tests, which import neither package."""
+    shim_programs()  # puts tests/ on the path
+    import _torch_wire
+
+    return _torch_wire
+
+
+def _wire_legs(slo: dict) -> str:
+    """Each wire's p50/p99 per api, method or op from the rig's report."""
+    out = []
+    for wire, hist in (("kafka", "kafka_api_seconds"), ("s3", "s3_api_seconds"),
+                       ("etcd", "etcd_api_seconds")):
+        legs = slo.get(hist, {})
+        out.append(f"{wire}: " + ", ".join(
+            f"{k} n={v['count']} p50 {v['p50_ms']} ms p99 {v['p99_ms']} ms"
+            for k, v in sorted(legs.items())))
+    return "; ".join(out)
+
+
+def phase_wire(dev, smoke: bool = True, card: str = "") -> dict:
+    """Phase 20: the wire rig on this machine's CPU (see the module
+    docstring); returns the seconds of each leg, the smoke rig's report
+    and pop_min's launches (0). ``smoke=False`` leaves out leg (c), the
+    smoke rig's subprocess (the CPU rehearsal runs it only under
+    ``-m slow``)."""
+    import tempfile
+
+    import madsim_tpu_torch as ms
+
+    wires = wire_programs()
+    seconds, out = {}, {}
+
+    def run():
+        # (a) the determinism reports, every variant byte-equal to the golden
+        t0 = time.perf_counter()
+        golden = load_golden(WIRE_DET_GOLDEN)
+        runs = 0
+        for seed in WIRE_DET_SEEDS:
+            want = wires.report_bytes(golden[str(seed)])
+            for kind in ("async", "legacy"):
+                for telemetry in (True, False):
+                    got = wires.determinism_bytes(ms, kind, seed, telemetry)
+                    if got != want:
+                        raise SystemExit(f"phase 20 (a): seed {seed}, {kind}, telemetry "
+                                         f"{telemetry}: report {got!r} != {WIRE_DET_GOLDEN}")
+                    report = json.loads(got)
+                    if not (report["kafka"]["replay_ok"] and report["s3"]["replay_ok"]):
+                        raise SystemExit(f"phase 20 (a): seed {seed}, {kind}: a replay failed")
+                    runs += 1
+        seconds["a"] = time.perf_counter() - t0
+        out["a"] = {"reports": runs}
+        log(f"phase 20 (a) wire_load determinism: {runs} reports (seeds {list(WIRE_DET_SEEDS)} x "
+            f"async/legacy x telemetry on/off) = {WIRE_DET_GOLDEN}, replays ok, "
+            f"{seconds['a']:.6f} s")
+
+        # (b) the Kafka wire-vs-broker differential's digests
+        t0 = time.perf_counter()
+        fuzz = load_golden(FUZZ_GOLDEN)
+        for leg, digests in (("loopback", wires.fuzz_digests), ("tcp", wires.fuzz_tcp_digests)):
+            want = fuzz[leg]
+            got = digests(ms, want["seeds"], want["ops"])
+            if got != want["digests"]:
+                bad = [s for s, g, w in zip(want["seeds"], got, want["digests"]) if g != w]
+                raise SystemExit(f"phase 20 (b): {leg} fuzz digests of seeds {bad} != "
+                                 f"{FUZZ_GOLDEN}")
+        seconds["b"] = time.perf_counter() - t0
+        out["b"] = {leg: len(fuzz[leg]["seeds"]) for leg in ("loopback", "tcp")}
+        log(f"phase 20 (b) kafka fuzz: {out['b']['loopback']} seeds on loopback at "
+            f"{fuzz['loopback']['ops']} ops and {out['b']['tcp']} over localhost TCP at "
+            f"{fuzz['tcp']['ops']} ops = {FUZZ_GOLDEN}, {seconds['b']:.6f} s")
+
+        # (c) the smoke rig in a fresh interpreter: it forks its workers
+        if not smoke:
+            return
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "smoke.json")
+            env = dict(os.environ, PYTHONPATH=HERE)
+            proc = subprocess.run(
+                [sys.executable, "-m", "madsim_tpu_torch.wire_load", "--smoke", "--report", path],
+                cwd=HERE, env=env, capture_output=True, text=True, timeout=WIRE_SMOKE_TIMEOUT_S)
+            if proc.returncode != 0 or not os.path.exists(path):
+                raise SystemExit(f"phase 20 (c): wire_load --smoke exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+            with open(path) as f:
+                rig = json.load(f)
+        seconds["c"] = time.perf_counter() - t0
+        load = rig["load"]
+        if load["gate_failures"] or not rig["parity"]:
+            raise SystemExit(f"phase 20 (c): gate {load['gate_failures']}, parity {rig['parity']}")
+        out["c"] = rig
+        log(f"phase 20 (c) smoke rig on this machine's CPU{card}: {load['clients']} clients in "
+            f"{load['workers']} worker processes, {load['total_ops']} ops in "
+            f"{load['elapsed_s']} s, {load['throughput_ops_s']} ops/s, peak "
+            f"{load['peak_open_conns']} connections, errors {load['stats']['errors']}, "
+            f"chaos {json.dumps(load['chaos'], sort_keys=True)}, histories "
+            f"{json.dumps(load['history_checks'], sort_keys=True)}, replay "
+            f"{json.dumps(load['replay'], sort_keys=True)}, gate ok, async-vs-legacy parity ok; "
+            f"subprocess {seconds['c']:.6f} s")
+        log(f"phase 20 (c) p50/p99 (server-side histograms){card}: {_wire_legs(load['slo'])}")
+
+    r = engine_steps_run(dev, run)
+    if r["launches"] != 0 or r["calls"] != 0:
+        raise SystemExit(f"phase 20: pop_min launched {r['launches']} times "
+                         f"({r['calls']} step_batch calls): the wire rig touched the card")
+    log(f"phase 20 seconds: {json.dumps({k: round(v, 6) for k, v in seconds.items()})}; "
+        f"pop_min launches 0")
+    return dict(out, launches=r["launches"], seconds=seconds)
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock from nvidia-smi (the issue ceiling's clock)."""
     out = subprocess.run(
@@ -2661,11 +2798,12 @@ def main() -> int:
     timed(18, phase_native, dev, card=smi)
     observed = timed(19, phase_obs, dev, off_wall_s=checked["stale_host_decode_wall_s"],
                      card=smi)
+    wired = timed(20, phase_wire, dev, card=f" ({smi})")
     per_phase = {3: launches, 8: grid["launches"], 9: checked["launches"],
                  10: kafka_out["launches"], 11: s3_out["launches"],
                  12: kafka_checked["launches"], 13: streamed["launches"],
                  14: meshed["launches"], 15: campaigned["launches"], 16: explored["launches"],
-                 17: crossed["launches"], 19: observed["launches"]}
+                 17: crossed["launches"], 19: observed["launches"], 20: wired["launches"]}
     launches = sum(per_phase.values())
     log(f"pop_min launches per phase (each = its engine steps: step_batch calls, summed over "
         f"the ranks in 14-15 and the workers in 16, and in 16-17 the one-lane replays' steps): "

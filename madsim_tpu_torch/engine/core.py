@@ -289,6 +289,14 @@ def _step(workload: Workload, cfg: EngineConfig, s: EngineState):
     return state, kind, pay
 
 
+def step_one(workload: Workload, cfg: EngineConfig, s: EngineState) -> EngineState:
+    """Advance one seed by one event (no-op once ``done``). ``s`` is one
+    lane's state with no batch axis, as the reference's ``step_one``
+    takes it: the step runs as a batch of one on the state's own device."""
+    one = tree.map(lambda a: a.unsqueeze(0), s)
+    return tree.map(lambda a: a.squeeze(0), _step(workload, cfg, one)[0])
+
+
 def step_batch(
     workload: Workload, cfg: EngineConfig, state: EngineState, device=None
 ) -> EngineState:

@@ -170,6 +170,29 @@ class ProtoPackage:
         return spec
 
 
+def _without_json_names(fd):
+    """A copy of a ``FileDescriptorProto`` with every field's
+    ``json_name`` cleared: ``--descriptor_set_out`` fills it in on every
+    field, and a generated ``_pb2``'s embedded descriptor leaves it out,
+    so the same ``.proto`` compares equal only without it."""
+    out = type(fd)()
+    out.CopyFrom(fd)
+
+    def strip(fields):
+        for f in fields:
+            f.ClearField("json_name")
+
+    def walk(messages):
+        for m in messages:
+            strip(m.field)
+            strip(m.extension)
+            walk(m.nested_type)
+
+    strip(out.extension)
+    walk(out.message_type)
+    return out
+
+
 def compile_protos(*protos: str, includes: tuple = ()) -> ProtoPackage:
     """Compile ``.proto`` files into a :class:`ProtoPackage`.
 
@@ -230,10 +253,9 @@ def compile_protos(*protos: str, includes: tuple = ()) -> ProtoPackage:
                         # compare parsed messages, not bytes: a different
                         # protoc release can serialize the same descriptor
                         # with different bytes
-                        same = ser is not None and (
+                        same = ser is not None and _without_json_names(
                             descriptor_pb2.FileDescriptorProto.FromString(ser)
-                            == fd
-                        )
+                        ) == _without_json_names(fd)
                         if not same:
                             raise ProtogenError(
                                 f"module {mod_name!r} is already loaded with "

@@ -68,15 +68,15 @@ def _is_slow(dec) -> bool:
     return ast.unparse(dec).endswith("mark.slow")
 
 
-def cases(name: str, exclude=()) -> list:
+def cases(name: str) -> list:
     """The test functions of ``tests/<name>.py`` in file order, read from
     its syntax tree (collection imports neither package), without the
-    ``slow`` ones and ``exclude``."""
+    ``slow`` ones."""
     with open(os.path.join(TESTS, f"{name}.py")) as f:
         tree = ast.parse(f.read())
     return [n.name for n in tree.body
             if isinstance(n, ast.FunctionDef) and n.name.startswith("test_")
-            and n.name not in exclude and not any(_is_slow(d) for d in n.decorator_list)]
+            and not any(_is_slow(d) for d in n.decorator_list)]
 
 
 def _call(fn, tmp_dir):

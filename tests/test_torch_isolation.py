@@ -36,6 +36,8 @@ HOST_MODULES = ["madsim_tpu_torch." + m for m in (
     "real.signal", "real.grpc", "real.etcd", "real.s3", "real.kafka",
     "serve", "serve.core", "serve.framing", "serve.adapters",
     "kafka.wire", "kafka.probe", "examples.greeter_real",
+    "s3.wire", "etcd.wire", "kafka.fuzz", "serve.loadgen", "wire_load",
+    "examples.greeter_wire", "examples.wire_servers",
 )]
 
 MODULES = [
@@ -139,9 +141,10 @@ def test_the_checkers_modules_import_no_torch(module):
 def test_the_host_tier_imports_no_torch():
     """``import madsim_tpu_torch`` and every host-tier module (the
     runtime, net, fs, builder, faults, the examples, the compiled core,
-    the tokio façade, the gRPC, etcd, Kafka and S3 shims with the Kafka
-    wire and its probe, the telemetry plane, the serving core and the
-    real-mode twin) leave torch out of ``sys.modules``."""
+    the tokio façade, the gRPC, etcd, Kafka and S3 shims with their
+    wires, the Kafka probe and differential fuzz, the telemetry plane, the
+    serving core, the load rig and its driver and the real-mode twin)
+    leave torch out of ``sys.modules``."""
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in ["madsim_tpu_torch"] + HOST_MODULES)
@@ -185,6 +188,74 @@ def test_real_imports_without_grpcio():
         "    raise AssertionError('grpc imported')\n"
         "assert sorted(real.__all__) == sorted(%r)\n"
     ) % (REAL_ALL,)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_wire_rig_runs_without_grpcio_and_aiohttp():
+    """The rig needs neither (``chip_smoke.py`` phase 20 runs it): its
+    determinism mode (the framed etcd wire, the S3 REST wire, the Kafka
+    wire) runs in a fresh interpreter where both are unimportable, and
+    gives the JAX-made golden report."""
+    code = (
+        "import asyncio, json, sys\n"
+        "class _Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('grpc', 'aiohttp'):\n"
+        "            raise ImportError(name + ' made unimportable')\n"
+        "sys.meta_path.insert(0, _Block())\n"
+        "from madsim_tpu_torch import wire_load\n"
+        "import madsim_tpu_torch.etcd.wire, madsim_tpu_torch.s3.wire, madsim_tpu_torch.kafka.fuzz\n"
+        "report = asyncio.run(wire_load._determinism_async('async', 0, True))\n"
+        "golden = json.load(open('madsim_tpu_torch/data/wire_load_determinism.json'))['0']\n"
+        "assert report == golden, report\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('grpc', 'aiohttp', 'torch')]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_engine_exports_the_reference_names():
+    import madsim_tpu.engine as reference
+    import madsim_tpu_torch.engine as engine
+
+    assert engine.__all__ == reference.__all__
+    for name in engine.__all__ + ["step_one"]:
+        assert callable(getattr(engine, name)), name
+
+
+def test_importing_the_engine_builds_nothing_and_touches_no_device():
+    """In a fresh interpreter, ``import madsim_tpu_torch.engine`` (after
+    the package itself, whose import builds the host core) initialises
+    no CUDA context, builds or loads no kernel and writes nothing under
+    ``madsim_tpu_torch/_build/`` (bar ``_build/native/``, the host core's,
+    which other test processes may be writing at the same time)."""
+    code = (
+        "import os\n"
+        "import madsim_tpu_torch\n"
+        "build = os.path.join(os.path.dirname(madsim_tpu_torch.__file__), '_build')\n"
+        "def tree():\n"
+        "    out = []\n"
+        "    for root, dirs, files in os.walk(build):\n"
+        "        if root == build and 'native' in dirs:\n"
+        "            dirs.remove('native')\n"
+        "        out += [(os.path.join(root, f), os.stat(os.path.join(root, f)).st_mtime_ns)\n"
+        "                for f in files]\n"
+        "    return sorted(out)\n"
+        "before = tree()\n"
+        "import madsim_tpu_torch.engine as engine\n"
+        "from madsim_tpu_torch.engine import cuda_build, run_sweep\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert cuda_build.LOGS == {} and cuda_build._LIBS == {}, cuda_build.LOGS\n"
+        "assert tree() == before\n"
+    )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
