@@ -217,18 +217,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     --smoke --report FILE`` (this process has CUDA and torch's threads
     and must not fork the workers): its gate and the async-vs-legacy
     parity must hold; clients, ops, ops/s, peak connections and each
-    wire's p50/p99 are printed beside the card's name and power limit.
+    wire's p50/p99 are printed beside the card's name and power limit;
+21. the command-line drivers (``madsim_tpu_torch/scripts``) on the card by
+    their documented commands, against the JAX-made
+    ``madsim_tpu_torch/data/scripts_golden.json``
+    (``python tests/test_torch_scripts_golden.py --write``): (a)
+    ``sweep_million 17384 CKPT --device cuda`` (the flagship in one full
+    chunk of 16,384 and a ragged one of 1,000) through the module's
+    ``main`` in this process, its ``step_batch`` calls (the warm-up's
+    one step included) equal to pop_min's launches, every chunk file's
+    summary equal to the reference's at that total, 0 kernel builds or
+    loads in the timed region; then the same command as a fresh
+    ``python -m`` process, which loads both chunks from the first run's
+    checkpoints, computes none and prints the same totals; (b) the
+    determinism gate's dump leg, ``python -m
+    madsim_tpu_torch.scripts.check_determinism --legs dump --device
+    cuda --jobs 2``: two fresh processes, side by side, write
+    byte-identical archives, every array equal to the JAX package's dump
+    by name, dtype, shape and sha256, each process's pop_min launches
+    equal to its engine steps.
 
 Phases 10-17 print their wall seconds, seeds/s, events/s and peak device
 memory, and each zeroes pop_min's launch count before every driven run
 and checks it equals the engine steps (the ``step_batch`` calls, and in
-16-17 the replays' steps too); so does phase 19, and phase 20 checks it stays 0. Every
-phase's seconds are printed. After
-the phases, both kernels' ``torch.profiler`` durations, from one profiler
+16-17 the replays' steps too); so does phase 19, phase 20 checks it
+stays 0, and phase 21 holds it to the in-process sweep's steps and to
+each dump process's own. Every phase's seconds are printed. After the
+phases, both kernels' ``torch.profiler`` durations, from one profiler
 session, are printed beside their CUDA-graph times. The line before the
 last is ``{"kernels": [...]}`` (pop_min's launches summed over phases 3,
-8-17, 19 and 20 (0 there), in 14-15 over the ranks and in 16 over the fleet's worker
-processes; its Q = 48 times beside the Q = 64 ones); the last is
+8-17 and 19-21 (0 in 20), in 14-15 over the ranks, in 16 over the
+fleet's worker processes and in 21 over this process and the dump's
+two; its Q = 48 times beside the Q = 64 ones); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -437,6 +457,13 @@ WIRE_DET_SEEDS = (0, 1)
 WIRE_DET_GOLDEN = "wire_load_determinism.json"
 FUZZ_GOLDEN = "kafka_fuzz.json"
 WIRE_SMOKE_TIMEOUT_S = 180
+# phase 21: the command-line drivers on the card; (a) sweep_million's
+# (total, chunk) at the card's size (one full flagship chunk and a ragged
+# one) and the CPU rehearsal's, each against the JAX-made golden
+# ``scripts_golden.json``; (b) the gate's dump leg in fresh processes
+SCRIPT_SWEEP_RUNS = ((17_384, 16_384), (24, 16))
+SCRIPTS_GOLDEN = "scripts_golden.json"
+SCRIPT_TIMEOUT_S = 900
 
 
 def log(msg: str) -> None:
@@ -2705,6 +2732,147 @@ def phase_wire(dev, smoke: bool = True, card: str = "") -> dict:
     return dict(out, launches=r["launches"], seconds=seconds)
 
 
+def npz_record(path: str) -> dict:
+    """Every array of an ``.npz`` by name: dtype, shape and sha256; and
+    the archive's sha256."""
+    import hashlib
+
+    import numpy as np
+
+    arrays = {}
+    with np.load(path) as z:
+        for k in z.files:
+            a = z[k]
+            arrays[k] = [str(a.dtype), list(a.shape),
+                         hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()]
+    with open(path, "rb") as f:
+        return {"arrays": arrays, "sha256": hashlib.sha256(f.read()).hexdigest()}
+
+
+def _script(module: str, *args: str, env=None) -> subprocess.CompletedProcess:
+    """``python -m madsim_tpu_torch.scripts.<module> *args`` in a fresh
+    interpreter from this checkout; a nonzero exit stops the phase."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"madsim_tpu_torch.scripts.{module}", *args],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE, **(env or {})),
+        capture_output=True, text=True, timeout=SCRIPT_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 21: {module} {' '.join(args)} exited {proc.returncode}:\n"
+                         f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    return proc
+
+
+# sweep_million's line: what equals the reference's (backend and the
+# compile count measure each package's own device and compiler)
+SWEEP_LINE_KEYS = ("metric", "seeds", "chunk_size", "violations", "elections_total",
+                   "chunks_loaded_from_checkpoint", "chunks_computed", "mesh_devices")
+
+
+def phase_scripts(dev, sweep=SCRIPT_SWEEP_RUNS[0], card: str = "") -> dict:
+    """Phase 21: the command-line drivers on ``dev`` by their documented
+    commands (see the module docstring); returns the seconds of each leg,
+    the engine steps and pop_min's launches (the dump's processes'
+    included)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from madsim_tpu_torch.scripts import sweep_million
+
+    golden = load_golden(SCRIPTS_GOLDEN)
+    total, chunk = sweep
+    want = golden["sweep_million"][f"{total}/{chunk}"]
+    env = {"MADSIM_SWEEP_CHUNK": str(chunk), "MADSIM_HB_SECONDS": "0"}
+    # the CPU rehearsal's processes run one torch thread each: an eager
+    # step is hundreds of small ops, which extra threads only slow down
+    sub_env = {"OMP_NUM_THREADS": "1"} if dev.type == "cpu" else {}
+    seconds, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the sweep in this process, its steps and launches counted,
+        # then the same command as a fresh process over its checkpoints
+        ck = os.path.join(tmp, "ck")
+        argv = [str(total), ck, "--device", dev.type]
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                r = engine_steps_run(dev, lambda: sweep_million.main(argv))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        first = json.loads(buf.getvalue().splitlines()[-1])
+        seconds["a_first"] = r["wall"]
+        chunks = {}
+        for name in sorted(os.listdir(ck)):
+            with open(os.path.join(ck, name)) as f:
+                chunks[name] = json.load(f)["summary"]
+        if chunks != want["chunks"]:
+            raise SystemExit(f"phase 21 (a): chunk summaries {chunks} != {SCRIPTS_GOLDEN}'s "
+                             f"{want['chunks']}")
+        for key in SWEEP_LINE_KEYS:
+            if first[key] != want["line"][key]:
+                raise SystemExit(f"phase 21 (a): {key} {first[key]} != the reference's "
+                                 f"{want['line'][key]}")
+        if first["compiles_in_timed_region"] != 0 or first["chunks_computed"] != len(chunks):
+            raise SystemExit(f"phase 21 (a): {first}")
+        t0 = time.perf_counter()
+        proc = _script("sweep_million", *argv, env=dict(env, **sub_env))
+        seconds["a_resume"] = time.perf_counter() - t0
+        second = json.loads(proc.stdout.splitlines()[-1])
+        same = ("violations", "elections_total", "seeds", "chunk_size")
+        if (second["chunks_computed"], second["chunks_loaded_from_checkpoint"],
+                second["compiles_in_timed_region"]) != (0, len(chunks), 0) or \
+                any(second[k] != first[k] for k in same):
+            raise SystemExit(f"phase 21 (a): the resumed run {second} against {first}")
+        out["a"] = {"first": first, "resumed": second, "steps": r["calls"],
+                    "launches": r["launches"], "peak": r["peak"]}
+        log(f"phase 21 (a) sweep_million {total} (chunks of {chunk}){card}: {r['calls']} "
+            f"step_batch calls = {r['launches']} pop_min launches (the warm-up's one step "
+            f"included), wall {first['wall_s']} s in the timed region, "
+            f"{first['seeds_per_sec']} seeds/s, {first['events_per_sec']} events/s, "
+            f"compiles_in_timed_region 0, violations {first['violations']}, elections "
+            f"{first['elections_total']}, chunk summaries = {SCRIPTS_GOLDEN}; {seconds['a_first']:.3f} "
+            f"s in all; resumed in a fresh process: {second['chunks_loaded_from_checkpoint']} "
+            f"chunks loaded, 0 computed, same totals, {seconds['a_resume']:.3f} s")
+
+        # (b) the gate's dump leg: two fresh processes side by side (each
+        # host-paced on a core of its own), equal archives, each array
+        # equal to the JAX-made dump
+        gate_out = os.path.join(tmp, "gate")
+        t0 = time.perf_counter()
+        proc = _script("check_determinism", "--legs", "dump", "--device", dev.type,
+                       "--out", gate_out, "--jobs", "2", env=sub_env)
+        seconds["b"] = time.perf_counter() - t0
+        got = npz_record(os.path.join(gate_out, "a.npz"))
+        if got["arrays"] != golden["dump"]["arrays"]:
+            bad = sorted(k for k in set(got["arrays"]) | set(golden["dump"]["arrays"])
+                         if got["arrays"].get(k) != golden["dump"]["arrays"].get(k))
+            raise SystemExit(f"phase 21 (b): dump arrays {bad} differ from {SCRIPTS_GOLDEN}")
+        dumps = []
+        for r_ in "ab":
+            with open(os.path.join(gate_out, f"{r_}.dump.log")) as f:
+                line = next(ln for ln in f if ln.startswith('{"dump"'))
+            d = json.loads(line)["dump"]
+            if dev.type == "cuda" and d["pop_min_launches"] != d["engine_steps"]:
+                raise SystemExit(f"phase 21 (b): {d}")
+            dumps.append(d)
+        out["b"] = {"processes": dumps, "same_archive": got["sha256"] == golden["dump"]["sha256"]}
+        log(f"phase 21 (b) check_determinism --legs dump{card}: two processes, byte-identical "
+            f"archives, {len(got['arrays'])} arrays = {SCRIPTS_GOLDEN} by name, dtype, shape and "
+            f"sha256 (the archive's own sha256 {'equal' if out['b']['same_archive'] else 'unequal'}"
+            f" too); engine steps = pop_min launches per process "
+            f"{[(d['engine_steps'], d['pop_min_launches']) for d in dumps]}; "
+            f"{seconds['b']:.3f} s ({proc.stdout.splitlines()[0]})")
+    launches = out["a"]["launches"] + sum(d["pop_min_launches"] for d in out["b"]["processes"])
+    log(f"phase 21 seconds: {json.dumps({k: round(v, 6) for k, v in seconds.items()})}; "
+        f"pop_min launches {launches}")
+    return dict(out, launches=launches, seconds=seconds)
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock from nvidia-smi (the issue ceiling's clock)."""
     out = subprocess.run(
@@ -2799,11 +2967,13 @@ def main() -> int:
     observed = timed(19, phase_obs, dev, off_wall_s=checked["stale_host_decode_wall_s"],
                      card=smi)
     wired = timed(20, phase_wire, dev, card=f" ({smi})")
+    scripted = timed(21, phase_scripts, dev, card=f" ({smi})")
     per_phase = {3: launches, 8: grid["launches"], 9: checked["launches"],
                  10: kafka_out["launches"], 11: s3_out["launches"],
                  12: kafka_checked["launches"], 13: streamed["launches"],
                  14: meshed["launches"], 15: campaigned["launches"], 16: explored["launches"],
-                 17: crossed["launches"], 19: observed["launches"], 20: wired["launches"]}
+                 17: crossed["launches"], 19: observed["launches"], 20: wired["launches"],
+                 21: scripted["launches"]}
     launches = sum(per_phase.values())
     log(f"pop_min launches per phase (each = its engine steps: step_batch calls, summed over "
         f"the ranks in 14-15 and the workers in 16, and in 16-17 the one-lane replays' steps): "

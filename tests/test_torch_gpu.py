@@ -351,3 +351,31 @@ def test_steered_campaign_on_the_card_equals_the_cpu(tmp_path):
         if device == "cuda":
             assert run["replay_steps"] > 0 and run["launches"] == run["calls"] + run["replay_steps"]
     assert blobs["cuda"] == blobs["cpu"]
+
+
+@pytest.mark.gpu
+def test_a_driver_runs_on_the_card_by_default():
+    """``python -m madsim_tpu_torch.scripts.sweep_million`` with no
+    ``--device`` runs on CUDA: its line names the backend ``cuda``, and a
+    ragged tail (16 + 8 seeds) gives the CPU run's totals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=chip_smoke.HERE, MADSIM_SWEEP_CHUNK="16",
+               MADSIM_HB_SECONDS="0")
+    lines = {}
+    for extra in ([], ["--device", "cpu"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "madsim_tpu_torch.scripts.sweep_million", "24", *extra],
+            cwd=chip_smoke.HERE, env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        lines[bool(extra)] = json.loads(proc.stdout.splitlines()[-1])
+    card, cpu = lines[False], lines[True]
+    assert card["backend"] == "cuda" and cpu["backend"] == "cpu"
+    assert card["compiles_in_timed_region"] == 0
+    for key in ("violations", "elections_total", "chunks_computed"):
+        assert card[key] == cpu[key]

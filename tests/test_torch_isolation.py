@@ -40,6 +40,14 @@ HOST_MODULES = ["madsim_tpu_torch." + m for m in (
     "examples.greeter_wire", "examples.wire_servers",
 )]
 
+# the command-line drivers (madsim_tpu_torch/scripts): importing one
+# imports no torch (each imports the engine inside ``main``)
+SCRIPT_MODULES = ["madsim_tpu_torch.scripts"] + [
+    "madsim_tpu_torch.scripts." + m for m in (
+        "_cli", "replay_seed", "sweep_million", "checked_sweep_demo", "oracle_demo",
+        "explore_demo", "differential_demo", "stream_smoke", "obs_smoke", "steer_demo",
+        "fleet_smoke", "multichip_campaign", "wire_load_demo", "check_determinism")]
+
 MODULES = [
     "madsim_tpu_torch",
     "madsim_tpu_torch.engine.rng",
@@ -83,7 +91,7 @@ MODULES = [
     "madsim_tpu_torch.explore.orchestrator",
     "madsim_tpu_torch.explore.differential",
     "madsim_tpu_torch.entry",
-] + HOST_MODULES
+] + HOST_MODULES + SCRIPT_MODULES
 
 
 def _sources():
@@ -148,6 +156,29 @@ def test_the_host_tier_imports_no_torch():
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in ["madsim_tpu_torch"] + HOST_MODULES)
+        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))\n"
+        "assert not bad, bad[:5]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_drivers_import_no_torch_and_the_package_not_them():
+    """Every module of ``madsim_tpu_torch/scripts`` (one per script of the
+    repository's ``scripts/``) imports without torch, and ``import
+    madsim_tpu_torch`` does not import the drivers."""
+    assert sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "scripts"))
+                  if f.endswith(".py") and f != "__init__.py") == \
+        sorted(m.rsplit(".", 1)[1] for m in SCRIPT_MODULES[1:])
+    code = (
+        "import sys\nimport madsim_tpu_torch\n"
+        "assert 'madsim_tpu_torch.scripts' not in sys.modules\n"
+        + "".join(f"import {m}\n" for m in SCRIPT_MODULES)
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))\n"
         "assert not bad, bad[:5]\n"
     )
