@@ -1,0 +1,3 @@
+"""Reader of the per-layer metric ``device_idle.raft``."""
+
+from portbench.metrics._read import device_idle as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""Reader of the per-layer metric ``kernels_per_step.etcd``."""
+
+from portbench.metrics._read import kernels_per_step as read  # noqa: F401

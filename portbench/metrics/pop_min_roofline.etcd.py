@@ -1,0 +1,3 @@
+"""Reader of the per-layer metric ``pop_min_roofline.etcd``."""
+
+from portbench.metrics._read import pop_min_roofline as read  # noqa: F401
