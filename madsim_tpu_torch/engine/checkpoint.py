@@ -23,6 +23,7 @@ fingerprint and cross freely.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -292,6 +293,34 @@ def _seeds(seeds) -> Tuple[torch.Tensor, np.ndarray, int]:
     if n == 0:
         raise ValueError("seed batch is empty")
     return s, s.numpy(), n
+
+
+class _ScreenTimer:
+    """The screen's time in the pipelined driver: on CUDA two timing
+    events recorded on the device's current stream around the call, read
+    only once the driver's own reads have passed the second (the timer
+    synchronises nothing); on the CPU the host's wall time around the
+    call."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        if self.stream is not None:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record(self.stream)
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.stream is not None:
+            self.end.record(self.stream)
+        else:
+            self.wall = time.perf_counter() - self.t0
+
+    def seconds(self) -> float:
+        if self.stream is not None:
+            return self.start.elapsed_time(self.end) * 1e-3
+        return self.wall
 
 
 def _default_run_chunk(workload, cfg, params, dev):
@@ -569,6 +598,8 @@ def run_sweep_pipelined(
         if telemetry is not None:
             d0 = tracer._now_us() if tracer is not None else 0.0
         pad = -k % pad_multiple
+        if telemetry is not None:
+            steps0 = core.drive.steps
         if lo == resume_lo:
             state, inflight = resume_from
             if telemetry is not None:
@@ -586,7 +617,18 @@ def run_sweep_pipelined(
             final = resume_chunk(state)
         else:
             final = core.run_padded(run_chunk, seeds, lo, chunk_size, pad, params)
+        timer = None
+        if telemetry is not None:
+            chunk_steps = core.drive.steps - steps0
+            if screen is not None:
+                timer = _ScreenTimer(final.ctr.device)
         susp = screen(final) if screen is not None else None
+        if telemetry is not None:
+            if timer is not None:
+                timer.stop()
+            # the events of the chunk's k real lanes (padding trails
+            # them), enqueued behind the screen and read after the summary
+            events = final.ctr[:k].sum(dtype=torch.int64)
 
         # -- previous chunk's host phase --------------------------------
         if pending is not None:
@@ -615,6 +657,15 @@ def run_sweep_pipelined(
             telemetry.observe(
                 "sweep_chunk_seconds", dt, help="device phase (dispatch -> summary) per chunk"
             )
+            # read after the summary has synchronised: the sum waits for
+            # nothing more, and the screen's end event lies before it
+            telemetry.observe("sweep_chunk_events", int(events),
+                              help="events the chunk's real lanes committed")
+            telemetry.observe("sweep_chunk_steps", chunk_steps,
+                              help="engine steps drive ran for the chunk")
+            if timer is not None:
+                telemetry.observe("sweep_screen_seconds", timer.seconds(),
+                                  help="the screen's time per chunk (on the card, its events)")
             if tracer is not None:
                 tracer.complete(
                     f"device chunk lo={lo}", d0, tracer._now_us() - d0,

@@ -19,11 +19,14 @@ workload's ``init`` receives on the sweep's device.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
 
 from .. import resolve_device
 from . import queue as equeue
@@ -39,6 +42,8 @@ HIST_COLS = 5
 # drive() reads the all-done flag back to the host once per this many
 # steps instead of every step (see drive's docstring for why that is exact)
 CHECK_EVERY = 64
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class Emits(NamedTuple):
@@ -215,28 +220,19 @@ def init_sweep(
     )
 
 
-def _step(workload: Workload, cfg: EngineConfig, s: EngineState):
-    """One event for every seed; returns ``(state', kind, pay)`` where
-    ``kind``/``pay`` are the popped event's (for the traced replay)."""
+def _span(name: str):
+    """A CPU-side profiler range named ``name`` while torch's profiler
+    records; otherwise one flag read and no range. ``_RecordFunctionFast``
+    is a function-scoped range: the profiler puts it on the host's
+    timeline only, not mirrored onto the device's as a user annotation,
+    so it adds no device operation to a trace."""
+    return _RecordFunctionFast(name) if _profiler._is_profiler_enabled else _NO_SPAN
+
+
+def _planes(workload: Workload, s: EngineState, wstate, now, kind, pay, take):
+    """The coverage, history and event-mix planes after one event:
+    ``(cover, hist_rec, hist_t, hist_len, hist_overflow, evmix)``."""
     dev = s.now_ns.device
-    active = ~s.done
-    # draw layout: rand[:, 0] clock jitter, rand[:, 1] pop tie-break,
-    # rand[:, 2:] the handler's draws
-    rand = event_bits(s.key, s.ctr, workload.num_rand + 2)
-    q, t, kind, pay, found = equeue.pop_min(s.queue, enable=active, tie_u32=rand[:, 1])
-    jitter = bounded(rand[:, 0], cfg.jitter_lo_ns, cfg.jitter_hi_ns + 1)
-    # an empty queue pops INVALID_TIME (int64 max), whose jump would
-    # overflow; such a lane is never taken (found is False), so it jumps
-    # from its own clock instead — its value reaches no state
-    now = torch.maximum(s.now_ns, torch.where(found, t, s.now_ns)) + jitter
-    time_up = now > cfg.time_limit_ns
-    take = active & found & ~time_up
-
-    wstate, emits = workload.handle(s.wstate, now, kind, pay, rand[:, 2:])
-    q, ov = equeue.push_many(
-        q, emits.times, emits.kinds, emits.pays, emits.enables & take[:, None]
-    )
-
     cover = s.cover
     if workload.cover is not None and workload.cover_bits > 0:
         w = cover_words(workload)
@@ -264,28 +260,62 @@ def _step(workload: Workload, cfg: EngineConfig, s: EngineState):
         k = workload.event_mix_kinds
         slot = (torch.arange(k, dtype=torch.int32, device=dev) == kind[:, None]) & take[:, None]
         evmix = ((s.evmix.to(torch.int64) + slot.to(torch.int64)) & M32).to(torch.uint32)
+    return cover, hist_rec, hist_t, hist_len, hist_ov, evmix
+
+
+def _step(workload: Workload, cfg: EngineConfig, s: EngineState):
+    """One event for every seed; returns ``(state', kind, pay)`` where
+    ``kind``/``pay`` are the popped event's (for the traced replay).
+
+    Six profiler ranges (``_span``) tile the step, so that every torch
+    op of it runs inside exactly one: ``step.draws``, ``step.pop``,
+    ``step.handler``, ``step.push``, ``step.planes``, ``step.select``."""
+    # draw layout: rand[:, 0] clock jitter, rand[:, 1] pop tie-break,
+    # rand[:, 2:] the handler's draws
+    with _span("step.draws"):
+        rand = event_bits(s.key, s.ctr, workload.num_rand + 2)
+        jitter = bounded(rand[:, 0], cfg.jitter_lo_ns, cfg.jitter_hi_ns + 1)
+    with _span("step.pop"):
+        active = ~s.done
+        q, t, kind, pay, found = equeue.pop_min(s.queue, enable=active, tie_u32=rand[:, 1])
+        # an empty queue pops INVALID_TIME (int64 max), whose jump would
+        # overflow; such a lane is never taken (found is False), so it jumps
+        # from its own clock instead — its value reaches no state
+        now = torch.maximum(s.now_ns, torch.where(found, t, s.now_ns)) + jitter
+        time_up = now > cfg.time_limit_ns
+        take = active & found & ~time_up
+    with _span("step.handler"):
+        wstate, emits = workload.handle(s.wstate, now, kind, pay, rand[:, 2:])
+    with _span("step.push"):
+        q, ov = equeue.push_many(
+            q, emits.times, emits.kinds, emits.pays, emits.enables & take[:, None]
+        )
+    with _span("step.planes"):
+        cover, hist_rec, hist_t, hist_len, hist_ov, evmix = _planes(
+            workload, s, wstate, now, kind, pay, take)
 
     def sel(new, old):
         # a leaf no handler touched is the same tensor: nothing to select
         return old if new is old else where(expand(take, new.ndim), new, old)
 
-    state = EngineState(
-        seed=s.seed,
-        key=s.key,
-        now_ns=torch.where(take, now, s.now_ns),
-        ctr=torch.where(take, s.ctr + 1, s.ctr),
-        done=s.done | (active & (~found | time_up)),
-        overflow=s.overflow | (take & ov),
-        qmax=torch.maximum(s.qmax, equeue.size(q)),
-        cover=cover,
-        hist_rec=hist_rec,
-        hist_t=hist_t,
-        hist_len=hist_len,
-        hist_overflow=hist_ov,
-        queue=q,
-        wstate=tree.map(sel, wstate, s.wstate),
-        evmix=evmix,
-    )
+    with _span("step.select"):
+        state = EngineState(
+            seed=s.seed,
+            key=s.key,
+            now_ns=torch.where(take, now, s.now_ns),
+            ctr=torch.where(take, s.ctr + 1, s.ctr),
+            done=s.done | (active & (~found | time_up)),
+            overflow=s.overflow | (take & ov),
+            qmax=torch.maximum(s.qmax, equeue.size(q)),
+            cover=cover,
+            hist_rec=hist_rec,
+            hist_t=hist_t,
+            hist_len=hist_len,
+            hist_overflow=hist_ov,
+            queue=q,
+            wstate=tree.map(sel, wstate, s.wstate),
+            evmix=evmix,
+        )
     return state, kind, pay
 
 
@@ -333,7 +363,13 @@ def drive(workload: Workload, cfg: EngineConfig, state: EngineState,
         for _ in range(n):
             state = step_batch(workload, cfg, state, device=state.now_ns.device)
         steps += n
+        drive.steps += n
     return state
+
+
+# steps ``drive`` has run in this process, counted on the host (the
+# pipelined driver reads it around each chunk's sweep)
+drive.steps = 0
 
 
 def run_sweep(

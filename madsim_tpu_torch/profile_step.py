@@ -1,4 +1,4 @@
-"""Where one step's time goes, layer by layer, on the card.
+"""Where one step's time goes, phase by phase, on the card.
 
 Run on a CUDA machine from the repository root:
 
@@ -8,28 +8,37 @@ It builds a model's sweep state — ``raft``: the MadRaft flagship
 (``RaftConfig(num_nodes=5, crashes=1)``, queue 64, 3 s horizon);
 ``kafka``: ``KafkaConfig()`` at 3 s (queue 48); ``s3``: ``S3Config()``
 at its defaults (5 s, queue 48); ``etcd``: ``EtcdConfig(hist_slots=256)``
-at 2 s (queue 48) — advances it ``--warm`` events, then times each layer
-of ``core.step_batch`` called on its own with that state's inputs — the
-threefry draws, the pop (with the pop-min kernel), the model's handler,
-the push — and the whole step. Per layer it prints one
-JSON line: host wall time per call (synchronised), device time per call
-(the sum of its kernels' durations in a ``torch.profiler`` trace), the
-number of device kernels per call, and the device's idle share of the
-wall time. The last line is the card's name and power limit.
+at 2 s (queue 48) — advances it ``--warm`` events, then runs ``--reps``
+steps of ``core.step_batch`` in a loop under ``torch.profiler``. The
+step's six phase ranges (``step.draws``, ``step.pop``, ``step.handler``,
+``step.push``, ``step.planes``, ``step.select``; ``engine/core._span``)
+tile it, so per phase it prints one JSON line, each number per step:
+the host ms (the range's CPU duration), the device ms and the number of
+device operations launched under the range (those of the torch ops
+inside it), and the device's idle ms whose gap's middle fell inside the
+range. A line for the whole step follows: the host's wall, the device's
+busy time (the union of its operations), its operations, the idle ms
+that fell outside every phase, and the count of device-timeline events
+named as a phase (0: the ranges are host-side only). The last line is
+the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import time
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .engine import core, queue, rng
+from .engine import core
 from .models import etcd, kafka, raft, s3
+
+PHASE = "step."
 
 
 def _model(name: str):
@@ -48,29 +57,60 @@ def _model(name: str):
     return etcd.workload(cfg), etcd.engine_config(cfg, time_limit_ns=2_000_000_000)
 
 
-def _measure(fn, reps: int) -> dict:
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:  # the profiler saw no device activity: say so
-        return {"wall_ms": wall_ms, "device_ms": None, "kernels_per_call": None,
-                "device_idle_share": None}
-    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
-    return {
-        "wall_ms": wall_ms,
-        "device_ms": device_ms,
-        "kernels_per_call": len(kernels) / reps,
-        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-    }
+def _launched(event):
+    """(device us, operations) of every device operation launched by the
+    torch ops under the host event ``event``."""
+    us, n = 0.0, 0
+    stack = [event]
+    while stack:
+        e = stack.pop()
+        for k in e.kernels:
+            us += k.duration
+            n += 1
+        stack.extend(e.cpu_children)
+    return us, n
+
+
+def phases(events, reps: int) -> list:
+    """One row per phase range of ``events`` (a profile's ``events()``) and
+    a last row for the whole window, every number per step."""
+    ranges = sorted((e for e in events if e.device_type == DeviceType.CPU
+                     and e.name.startswith(PHASE)), key=lambda e: e.time_range.start)
+    device = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == DeviceType.CUDA and not e.name.startswith(PHASE))
+    rows = {}
+    for r in ranges:
+        row = rows.setdefault(r.name, {"phase": r.name, "host_us": 0.0, "device_us": 0.0,
+                                       "ops": 0, "idle_us": 0.0})
+        row["host_us"] += r.time_range.elapsed_us()
+        us, n = _launched(r)
+        row["device_us"] += us
+        row["ops"] += n
+    starts = [r.time_range.start for r in ranges]
+    busy_us = outside_us = 0.0
+    end = None
+    for s, e in device:
+        if end is not None and s > end:
+            mid = 0.5 * (s + end)
+            j = bisect.bisect_right(starts, mid) - 1
+            if j >= 0 and ranges[j].time_range.end >= mid:
+                rows[ranges[j].name]["idle_us"] += s - end
+            else:
+                outside_us += s - end
+        if end is None or s >= end:
+            busy_us += e - s
+            end = e
+        elif e > end:
+            busy_us += e - end
+            end = e
+    out = [{"phase": row["phase"], "host_ms": row["host_us"] / reps / 1e3,
+            "device_ms": row["device_us"] / reps / 1e3, "ops": row["ops"] / reps,
+            "idle_ms": row["idle_us"] / reps / 1e3} for row in rows.values()]
+    out.append({"phase": "step", "device_ms": busy_us / reps / 1e3,
+                "ops": len(device) / reps, "idle_ms_outside_phases": outside_us / reps / 1e3,
+                "mirrored_phase_events": sum(1 for e in events if e.device_type == DeviceType.CUDA
+                                             and e.name.startswith(PHASE))})
+    return out
 
 
 def main() -> None:
@@ -87,22 +127,17 @@ def main() -> None:
     s = core.init_sweep(wl, ecfg, torch.arange(args.seeds), device=dev)
     for _ in range(args.warm):
         s = core.step_batch(wl, ecfg, s, device=dev)
-    rand = rng.event_bits(s.key, s.ctr, wl.num_rand + 2)
-    q, t, kind, pay, found = queue.pop_min(s.queue, enable=~s.done, tie_u32=rand[:, 1])
-    now = torch.maximum(s.now_ns, torch.where(found, t, s.now_ns)) + 75
-    _w, emits = wl.handle(s.wstate, now, kind, pay, rand[:, 2:])
-    layers = {
-        "rng.event_bits": lambda: rng.event_bits(s.key, s.ctr, wl.num_rand + 2),
-        "queue.pop_min": lambda: queue.pop_min(s.queue, enable=~s.done, tie_u32=rand[:, 1]),
-        f"{args.model}.handle": lambda: wl.handle(s.wstate, now, kind, pay, rand[:, 2:]),
-        "queue.push_many": lambda: queue.push_many(
-            q, emits.times, emits.kinds, emits.pays, emits.enables),
-        "core.step_batch": lambda: core.step_batch(wl, ecfg, s, device=dev),
-    }
-    for name, fn in layers.items():
-        row = {"model": args.model, "layer": name, "seeds": args.seeds,
-               **_measure(fn, args.reps)}
-        print(json.dumps(row), flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            s = core.step_batch(wl, ecfg, s, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / args.reps * 1e3
+    rows = phases(prof.events(), args.reps)
+    rows[-1]["wall_ms"] = wall_ms
+    for row in rows:
+        print(json.dumps({"model": args.model, "seeds": args.seeds, **row}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -1,0 +1,8 @@
+"""Reader of the per-layer metric ``push_idle_ms.etcd``: idle device ms per
+profiled step under the program's ``step.push`` range."""
+
+from portbench.metrics._phase import idle_ms
+
+
+def read(records):
+    return idle_ms(records, "step.push")

@@ -12,6 +12,10 @@ import re
 RUN_ID = "00000000cafef00d"
 WALL_METRIC = re.compile(r"(_seconds|_per_s|_per_s_per_device|_utilization)$")
 
+# the port's own histograms, which the reference's drivers do not record:
+# the pipelined driver's per-chunk screen time, engine steps and events
+PORT_ONLY_METRICS = ("sweep_screen_seconds", "sweep_chunk_steps", "sweep_chunk_events")
+
 
 def record(obs, tel, journal_path) -> dict:
     metrics = []
@@ -26,6 +30,11 @@ def record(obs, tel, journal_path) -> dict:
     journal = [{k: v for k, v in r.items() if k != "ts" and not k.endswith("_s")}
                for r in obs.read_journal(str(journal_path))]
     return {"metrics": metrics, "journal": journal}
+
+
+def without(rec: dict, drop=()) -> dict:
+    """``rec`` with the metrics named in ``drop`` (whole names) left out."""
+    return {**rec, "metrics": [m for m in rec["metrics"] if m[0] not in drop]}
 
 
 def spans(trace_path, drop=()) -> list:

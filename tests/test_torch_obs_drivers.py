@@ -14,7 +14,10 @@ sweep on a seed mesh of two ranks (the port's rank 0, whose host phase is
 the mesh's, against the reference on two CPU devices). Each run also
 holds its report to the reference's bytes, and the trace to the
 reference's spans (the port adds a ``host check`` span per chunk of the
-incremental checked sweep, which the reference's trace lacks).
+incremental checked sweep, which the reference's trace lacks). The
+port's pipelined driver also observes three histograms the reference's
+lacks, ``PORT_ONLY_METRICS`` (the screen's time, the engine steps and
+the events of each chunk), which the comparison sets aside by name.
 
 ``JAX_PLATFORMS=cpu python tests/test_torch_obs_drivers.py --write``
 writes ``madsim_tpu_torch/data/obs_event_mix.json`` from the reference:
@@ -37,7 +40,7 @@ import madsim_tpu.engine  # noqa: E402,F401  (the reference's int64 mode)
 from madsim_tpu import obs as robs  # noqa: E402
 from madsim_tpu_torch import obs as pobs  # noqa: E402
 
-from _torch_obs_record import RUN_ID, record, spans  # noqa: E402
+from _torch_obs_record import PORT_ONLY_METRICS, RUN_ID, record, spans, without  # noqa: E402
 
 def both(tmp_path, run):
     """``run(pkg, telemetry) -> report`` once per package, each with a
@@ -54,10 +57,10 @@ def both(tmp_path, run):
     return out
 
 
-def assert_same_record(ref, port, drop_spans=("host check",)):
+def assert_same_record(ref, port, drop_spans=("host check",), drop_metrics=PORT_ONLY_METRICS):
     assert json.dumps(port["report"], sort_keys=True, default=str) == \
         json.dumps(ref["report"], sort_keys=True, default=str)
-    assert port["record"]["metrics"] == ref["record"]["metrics"]
+    assert without(port["record"], drop_metrics)["metrics"] == ref["record"]["metrics"]
     assert port["record"]["journal"] == ref["record"]["journal"]
     assert spans(port["trace"], drop_spans) == spans(ref["trace"])
 
@@ -268,7 +271,7 @@ def test_mesh_checked_sweep_records_equal(tmp_path):
     finally:
         world.close()
     assert report0 == report1 == json.dumps(want, sort_keys=True)
-    assert record0 == want_record
+    assert without(record0, PORT_ONLY_METRICS) == want_record
     gauges = {m[0]: m[4] for m in record1["metrics"]}
     assert gauges["mesh_devices"] == [((), 2.0)]
 
