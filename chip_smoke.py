@@ -28,8 +28,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. the main path: the MadRaft flagship (``RaftConfig(num_nodes=5,
    crashes=1)``, queue 64, 3 s horizon, 200,000 max steps) over 16,384
    seeds through ``core.run_sweep(..., device="cuda")``. The kernel's
-   launch count is zeroed just before and must equal the number of
-   ``step_batch`` calls just after;
+   launches over the run must equal its engine steps (``step_batch``
+   calls and the steps ``core.drive``'s graph replayed), both counted by
+   ``core.StepCount``;
 4. cross-device parity: seeds 0-63 through the port on the CPU equal
    lanes 0-63 of the GPU state leaf for leaf, and the GPU run's
    ``sweep_summary(limit=64)`` equals the JAX-made golden summary
@@ -238,9 +239,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     equal to its engine steps.
 
 Phases 10-17 print their wall seconds, seeds/s, events/s and peak device
-memory, and each zeroes pop_min's launch count before every driven run
-and checks it equals the engine steps (the ``step_batch`` calls, and in
-16-17 the replays' steps too); so does phase 19, phase 20 checks it
+memory, and each counts pop_min's launches over every driven run and
+checks they equal the engine steps (``core.StepCount``: the
+``step_batch`` calls and the steps ``core.drive`` replayed as a CUDA
+graph, and in 16-17 the one-lane replays' steps too); so does phase 19, phase 20 checks it
 stays 0, and phase 21 holds it to the in-process sweep's steps and to
 each dump process's own. Every phase's seconds are printed. After the
 phases, both kernels' ``torch.profiler`` durations, from one profiler
@@ -558,45 +560,32 @@ def main_path_run(dev, fn):
 
 
 def engine_steps_run(dev, fn) -> dict:
-    """Run ``fn()`` as a driven path: every engine step is counted, the
-    ``step_batch`` calls and the steps of one-lane replays
-    (``core.run_traced`` steps the engine without ``step_batch``) apart,
-    and pop_min's launch count is zeroed just before and read just after.
-    On the card every step must have launched the kernel once."""
+    """Run ``fn()`` as a driven path, its engine steps and pop_min's
+    launches counted by ``core.StepCount``: the batched steps
+    (``step_batch`` calls and the steps ``core.drive``'s step graphs
+    replayed) and the steps of one-lane replays (``core.run_traced``
+    steps the engine without ``step_batch``) apart. On the card every
+    step must have launched the kernel once."""
     import torch
 
-    from madsim_tpu_torch.engine import core, cuda_queue
+    from madsim_tpu_torch.engine import core
 
-    calls, steps = [0], [0]
-    step_batch, step = core.step_batch, core._step
-
-    def counted_batch(*args, **kwargs):
-        calls[0] += 1
-        return step_batch(*args, **kwargs)
-
-    def counted_step(*args, **kwargs):
-        steps[0] += 1
-        return step(*args, **kwargs)
-
-    core.step_batch, core._step = counted_batch, counted_step
-    try:
+    with core.StepCount() as count:
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        cuda_queue.pop_min_decision.launches = 0
         t0 = time.perf_counter()
         out = fn()
         if dev.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = cuda_queue.pop_min_decision.launches
-    finally:
-        core.step_batch, core._step = step_batch, step
-    if dev.type == "cuda" and launches != steps[0]:
+    if dev.type == "cuda" and count.launches != count.steps:
         raise SystemExit(
-            f"pop_min launches ({launches}) != engine steps ({steps[0]}: {calls[0]} step_batch "
-            "calls and the replays' steps): the path did not go through the kernel on every event")
-    return {"out": out, "calls": calls[0], "replay_steps": steps[0] - calls[0],
-            "launches": launches, "wall": wall, "peak": _peak(dev)}
+            f"pop_min launches ({count.launches}) != engine steps ({count.steps}: "
+            f"{count.batched} batched and the one-lane replays' steps): the path did not go "
+            "through the kernel on every event")
+    return {"out": out, "calls": count.batched, "replay_steps": count.steps - count.batched,
+            "launches": count.launches, "captures": count.captures, "wall": wall,
+            "peak": _peak(dev)}
 
 
 def flagship():
@@ -1610,26 +1599,17 @@ _RANK_COUNTER: dict = {}
 
 
 def _rank_count(mesh, start: bool):
-    """Start counting a rank's ``core.step_batch`` calls (pop_min's count
-    zeroed), or stop and return ``{"calls", "launches"}``: the counting
-    around a run this script does not call itself (``dryrun_multichip``)."""
-    from madsim_tpu_torch.engine import core, cuda_queue
+    """Start counting a rank's batched steps (``core.StepCount``), or stop
+    and return ``{"calls", "launches"}``: the counting around a run this
+    script does not call itself (``dryrun_multichip``)."""
+    from madsim_tpu_torch.engine import core
 
     del mesh
     if start:
-        step_batch, calls = core.step_batch, [0]
-
-        def counted(*args, **kwargs):
-            calls[0] += 1
-            return step_batch(*args, **kwargs)
-
-        _RANK_COUNTER.update(step_batch=step_batch, calls=calls)
-        core.step_batch = counted
-        cuda_queue.pop_min_decision.launches = 0
+        _RANK_COUNTER["count"] = core.StepCount().start()
         return None
-    core.step_batch = _RANK_COUNTER.pop("step_batch")
-    return {"calls": _RANK_COUNTER.pop("calls")[0],
-            "launches": cuda_queue.pop_min_decision.launches}
+    count = _RANK_COUNTER.pop("count").stop()
+    return {"calls": count.batched, "launches": count.launches}
 
 
 def _rank_campaign(mesh, run, path: str) -> dict:
@@ -1841,8 +1821,8 @@ def _timed_calls(module, name: str):
 
 def _steps_line(r: dict) -> str:
     return (f"pop_min launches {r['launches']} = engine steps {r['calls'] + r['replay_steps']} "
-            f"({r['calls']} step_batch calls + {r['replay_steps']} one-lane replay steps), "
-            f"wall {r['wall']:.6f} s, peak device memory {r['peak']} B")
+            f"({r['calls']} batched steps + {r['replay_steps']} one-lane replay steps), "
+            f"{r['captures']} step graphs captured, wall {r['wall']:.6f} s, peak device memory {r['peak']} B")
 
 
 def phase_steer(dev, run=STEER_RUNS[0]) -> dict:
@@ -2831,7 +2811,7 @@ def phase_scripts(dev, sweep=SCRIPT_SWEEP_RUNS[0], card: str = "") -> dict:
         out["a"] = {"first": first, "resumed": second, "steps": r["calls"],
                     "launches": r["launches"], "peak": r["peak"]}
         log(f"phase 21 (a) sweep_million {total} (chunks of {chunk}){card}: {r['calls']} "
-            f"step_batch calls = {r['launches']} pop_min launches (the warm-up's one step "
+            f"batched steps = {r['launches']} pop_min launches (the warm-up's steps "
             f"included), wall {first['wall_s']} s in the timed region, "
             f"{first['seeds_per_sec']} seeds/s, {first['events_per_sec']} events/s, "
             f"compiles_in_timed_region 0, violations {first['violations']}, elections "
@@ -2897,7 +2877,7 @@ def main() -> int:
     t0 = time.perf_counter()
     import madsim_tpu_torch as ms
     from madsim_tpu_torch import native
-    from madsim_tpu_torch.engine import cuda_build, cuda_megasweep, cuda_queue
+    from madsim_tpu_torch.engine import core, cuda_build, cuda_megasweep, cuda_queue
 
     native_s = time.perf_counter() - t0
     if not native.available() or native.simloop() is None or ms.time._simloop is None:
@@ -2958,7 +2938,10 @@ def main() -> int:
     s3_out = timed(11, phase_s3, dev)
     kafka_checked = timed(12, phase_kafka_checked, dev)
     streamed = timed(13, phase_stream, dev)
-    torch.cuda.empty_cache()  # the ranks of phases 14-15 share the card
+    # the ranks of phases 14-15 share the card: this process's step graphs
+    # and cached blocks go back to it
+    core.release_step_graphs()
+    torch.cuda.empty_cache()
     meshed = timed(14, phase_mesh, dev)
     campaigned = timed(15, phase_campaign, dev)
     explored = timed(16, phase_explore, dev, card=f"; {smi}")

@@ -599,7 +599,7 @@ def run_sweep_pipelined(
             d0 = tracer._now_us() if tracer is not None else 0.0
         pad = -k % pad_multiple
         if telemetry is not None:
-            steps0 = core.drive.steps
+            steps0, graph_steps0 = core.drive.steps, core.drive.graph_steps
         if lo == resume_lo:
             state, inflight = resume_from
             if telemetry is not None:
@@ -620,6 +620,7 @@ def run_sweep_pipelined(
         timer = None
         if telemetry is not None:
             chunk_steps = core.drive.steps - steps0
+            chunk_graph_steps = core.drive.graph_steps - graph_steps0
             if screen is not None:
                 timer = _ScreenTimer(final.ctr.device)
         susp = screen(final) if screen is not None else None
@@ -663,6 +664,8 @@ def run_sweep_pipelined(
                               help="events the chunk's real lanes committed")
             telemetry.observe("sweep_chunk_steps", chunk_steps,
                               help="engine steps drive ran for the chunk")
+            telemetry.observe("sweep_chunk_graph_steps", chunk_graph_steps,
+                              help="of those, the steps its step-graph replays ran")
             if timer is not None:
                 telemetry.observe("sweep_screen_seconds", timer.seconds(),
                                   help="the screen's time per chunk (on the card, its events)")

@@ -12,12 +12,17 @@ and exit, and counts:
 - every ``nvcc`` build (a new ``cuda_build.LOGS`` entry) and every
   library load (a new ``cuda_build._LIBS`` entry) the region performed;
 - every graph ``torch.compile`` (dynamo) compiled, when dynamo is in use
-  — read from its own counters, without importing it otherwise.
+  — read from its own counters, without importing it otherwise;
+- every step graph ``core.drive`` captured (``drive.captures``): a CUDA
+  graph of ``core.GRAPH_STEPS`` steps, captured once per workload,
+  config, state layout and card and kept while it is among the newest
+  ``core.GRAPH_CACHE``; it costs about as much host time as those steps
+  run eagerly.
 
-So after a kernel's first use in a process the count is 0 by
-construction: ``c.count == 0`` keeps the reference's contract, but in
-eager torch it proves only that nothing was rebuilt or recompiled, not
-that a program was reused. ``c.events`` lists what was counted, as
+So after a kernel's first use in a process, and a sweep's first chunk
+of its width, the count is 0: ``c.count == 0`` keeps the reference's
+contract, and proves that nothing was rebuilt, recompiled or captured
+anew. ``c.events`` lists what was counted, as
 ``(kind, name)`` pairs.
 """
 
@@ -26,16 +31,18 @@ from __future__ import annotations
 import sys
 from contextlib import contextmanager
 
-from . import cuda_build
+from . import core, cuda_build
 
 
 class CompileCounter:
-    """Builds, library loads and dynamo graphs seen in one region."""
+    """Builds, library loads, dynamo graphs and step-graph captures seen
+    in one region."""
 
     def __init__(self):
         self.events: list = []
         self._builds = dict(cuda_build.LOGS)
         self._loads = dict(cuda_build._LIBS)
+        self._captures = core.drive.captures
         self._dynamo_base = _dynamo_graphs()
         self._dynamo_end = None  # frozen when the region closes
 
@@ -46,6 +53,7 @@ class CompileCounter:
         ):
             self.events += [(kind, name) for name, v in after.items()
                             if before.get(name) is not v]
+        self.events += [("capture", "drive")] * (core.drive.captures - self._captures)
         self._dynamo_end = _dynamo_graphs()
 
     @property
@@ -65,8 +73,9 @@ def _dynamo_graphs() -> int:
 @contextmanager
 def count_compiles():
     """``with count_compiles() as c:`` ... after the region, ``c.count``
-    is the number of kernel builds, library loads and dynamo graph
-    compilations it performed (0 after a proper warm-up)."""
+    is the number of kernel builds, library loads, dynamo graph
+    compilations and step-graph captures it performed (0 after a proper
+    warm-up)."""
     counter = CompileCounter()
     try:
         yield counter

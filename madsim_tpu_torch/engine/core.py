@@ -20,7 +20,9 @@ workload's ``init`` receives on the sweep's device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
+from collections import OrderedDict
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -29,6 +31,7 @@ from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 
 from .. import resolve_device
+from . import cuda_queue
 from . import queue as equeue
 from . import tree
 from .ops import expand, where
@@ -42,6 +45,12 @@ HIST_COLS = 5
 # drive() reads the all-done flag back to the host once per this many
 # steps instead of every step (see drive's docstring for why that is exact)
 CHECK_EVERY = 64
+
+# drive() replays a CUDA state's steps as one CUDA graph of this many
+# consecutive steps (a divisor of CHECK_EVERY), and keeps the graphs of
+# this many (workload, config, state layout, device) keys
+GRAPH_STEPS = 8
+GRAPH_CACHE = 4
 
 _NO_SPAN = contextlib.nullcontext()
 
@@ -339,6 +348,182 @@ def step_batch(
     return _step(workload, cfg, state)[0]
 
 
+def _steps_into(workload: Workload, cfg: EngineConfig, static: EngineState, n: int) -> None:
+    """``n`` consecutive steps of the state ``static``, written back into
+    its own leaves: the body a step graph captures. ``_step`` returns each
+    leaf either as the same tensor (``seed``, ``key``, a field no handler
+    touched), which is not copied, or as a new one (its selects), so no
+    copy overwrites a buffer another copy still reads."""
+    s = static
+    for _ in range(n):
+        s = _step(workload, cfg, s)[0]
+    ins, outs = tree.leaves(static), tree.leaves(s)
+    if len(ins) != len(outs) or any(
+            o.shape != i.shape or o.dtype != i.dtype for i, o in zip(ins, outs)):
+        raise ValueError("the step changed its state's layout: it cannot be replayed in place")
+    for i, o in zip(ins, outs):
+        if o is not i:
+            i.copy_(o)
+
+
+def _layout(x):
+    """A state tree's structure with each leaf's shape and dtype."""
+    if isinstance(x, tuple):
+        return type(x), tuple(_layout(c) for c in x)
+    return None if x is None else (tuple(x.shape), x.dtype)
+
+
+def _identity(x):
+    """What two workloads built alike share, for a cache key: a
+    ``functools.partial`` (how every model binds its config into its
+    functions) as its function and arguments, anything else as itself."""
+    if isinstance(x, functools.partial):
+        return (x.func, tuple(map(_identity, x.args)),
+                tuple(sorted((k, _identity(v)) for k, v in x.keywords.items())))
+    return x
+
+
+class _StepGraph:
+    """``GRAPH_STEPS`` consecutive steps captured as one CUDA graph over
+    static state buffers (``_steps_into``). Capturing runs no kernel, so
+    it advances no lane. The pop-min launches the capture takes in
+    (``cuda_queue.pop_min_decision.captured``) must be one a step; each
+    replay adds them to ``pop_min_decision.launches``, the kernels it ran."""
+
+    device_type = "cuda"  # the states it captures
+
+    def __init__(self, workload: Workload, cfg: EngineConfig, state: EngineState):
+        self.static = tree.map(torch.empty_like, state)
+        captured = cuda_queue.pop_min_decision.captured
+        self.graph = self._capture(
+            lambda: _steps_into(workload, cfg, self.static, GRAPH_STEPS), state.now_ns.device)
+        self.launches = cuda_queue.pop_min_decision.captured - captured
+        if self.launches != GRAPH_STEPS:
+            self.graph.reset()
+            raise RuntimeError(f"the step graph took in {self.launches} pop-min launches for "
+                               f"its {GRAPH_STEPS} steps, not one a step")
+        drive.captures += 1
+
+    @staticmethod
+    def _capture(body: Callable[[], None], device: torch.device):
+        # captured on the state's card, whichever is current
+        with torch.cuda.device(device):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                body()
+        return graph
+
+    def load(self, state: EngineState) -> EngineState:
+        """Copy ``state`` into the static buffers; returns them."""
+        for dst, src in zip(tree.leaves(self.static), tree.leaves(state)):
+            dst.copy_(src)
+        return self.static
+
+    def replay(self, times: int) -> None:
+        """``times * GRAPH_STEPS`` steps of the static state."""
+        for _ in range(times):
+            self.graph.replay()
+        cuda_queue.pop_min_decision.launches += times * self.launches
+        drive.graph_steps += times * GRAPH_STEPS
+
+    def unload(self) -> EngineState:
+        """A copy of the static state: a later replay cannot reach it."""
+        return tree.map(torch.clone, self.static)
+
+
+_GRAPHS: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
+
+
+def _step_graph(workload: Workload, cfg: EngineConfig,
+                state: EngineState) -> Optional[_StepGraph]:
+    """The cached step graph of this workload (``_identity``: built
+    alike, not the same object), config (``max_steps`` aside: a step
+    never reads it), state layout and device, captured on a miss (None
+    for a state off CUDA). Before a capture, the least recently used
+    graphs beyond ``GRAPH_CACHE - 1`` are dropped and their memory pools
+    released."""
+    if state.now_ns.device.type != _StepGraph.device_type:
+        return None
+    key = (tuple(map(_identity, workload)), cfg._replace(max_steps=0), _layout(state),
+           state.now_ns.device)
+    g = _GRAPHS.get(key)
+    if g is not None:
+        _GRAPHS.move_to_end(key)
+        return g
+    while len(_GRAPHS) >= GRAPH_CACHE:
+        _GRAPHS.popitem(last=False)[1].graph.reset()
+    g = _GRAPHS[key] = _StepGraph(workload, cfg, state)
+    return g
+
+
+def release_step_graphs() -> None:
+    """Drop every cached step graph: their static states and memory pools
+    go back to torch's allocator (``torch.cuda.empty_cache`` returns them
+    to the card). The next ``drive`` of a CUDA state captures anew."""
+    while _GRAPHS:
+        _GRAPHS.popitem(last=False)[1].graph.reset()
+
+
+class StepCount:
+    """The engine steps run while it is entered (``with StepCount() as
+    c``, or ``start()`` and ``stop()``), and pop-min's kernels over them:
+
+    - ``batched``: ``step_batch`` calls and the steps ``drive``'s step
+      graphs replayed;
+    - ``steps``: every step, the ``_step`` calls made outside a capture
+      (``run_traced`` steps without ``step_batch``) and the replayed steps;
+    - ``launches``: the change of ``pop_min_decision.launches``, counted
+      where the kernel is launched (a replay adds the launches its capture
+      took in);
+    - ``captures``: the step graphs captured; the ``_step`` calls seen
+      while they were captured must be ``GRAPH_STEPS`` each.
+
+    On a card every step launches the kernel once: ``launches == steps``."""
+
+    def start(self) -> "StepCount":
+        global step_batch, _step
+        calls, eager, captured = [0], [0], [0]
+        batch_fn, step_fn = step_batch, _step
+        cuda = torch.cuda.is_available()
+
+        def counted_batch(*args, **kwargs):
+            calls[0] += 1
+            return batch_fn(*args, **kwargs)
+
+        def counted_step(*args, **kwargs):
+            if cuda and torch.cuda.is_current_stream_capturing():
+                captured[0] += 1
+            else:
+                eager[0] += 1
+            return step_fn(*args, **kwargs)
+
+        self._restore = lambda: globals().update(step_batch=batch_fn, _step=step_fn)
+        self._counts = calls, eager, captured
+        self._base = (drive.graph_steps, drive.captures, cuda_queue.pop_min_decision.launches)
+        step_batch, _step = counted_batch, counted_step
+        return self
+
+    def stop(self) -> "StepCount":
+        self._restore()
+        (calls, eager, captured), base = self._counts, self._base
+        graphed, self.captures, self.launches = (
+            b - a for a, b in zip(base, (drive.graph_steps, drive.captures,
+                                         cuda_queue.pop_min_decision.launches)))
+        if captured[0] != self.captures * GRAPH_STEPS:
+            raise RuntimeError(f"{self.captures} step graphs captured {captured[0]} steps, not "
+                               f"{GRAPH_STEPS} each")
+        self.batched, self.steps = calls[0] + graphed, eager[0] + graphed
+        return self
+
+    __enter__ = start
+
+    def __exit__(self, kind, *exc) -> None:
+        if kind is None:
+            self.stop()
+        else:
+            self._restore()
+
+
 def drive(workload: Workload, cfg: EngineConfig, state: EngineState,
           live: Optional[Callable[[EngineState], int]] = None) -> EngineState:
     """Step a batched state until every seed is done or ``cfg.max_steps``
@@ -352,24 +537,48 @@ def drive(workload: Workload, cfg: EngineConfig, state: EngineState,
     gated by ``take``), so the extra steps after the last seed finishes
     change nothing — and the step count never exceeds ``max_steps``. The
     seed mesh passes the count summed over its ranks, so every rank runs
-    the same steps."""
+    the same steps.
+
+    A CUDA state is copied once into the static buffers of a step graph
+    (``_step_graph``: the same ``_step``, kernels and order, captured
+    once per workload, config, state layout and device) and stepped by
+    replaying it, ``CHECK_EVERY / GRAPH_STEPS`` times between reads; the
+    ``n % GRAPH_STEPS`` steps of a last block cut short by ``max_steps``
+    run eagerly on a copy. A step that cannot be captured raises. The
+    result is a copy, never a graph's buffer, so a later ``drive`` call
+    leaves it as it is. A CPU state is stepped eagerly."""
     if live is None:
         live = lambda s: int((~s.done).sum())  # noqa: E731
+    graph = None
     steps = 0
     while steps < cfg.max_steps and live(state) > 0:
         n = min(CHECK_EVERY, cfg.max_steps - steps)
+        if steps == 0 and n >= GRAPH_STEPS:
+            graph = _step_graph(workload, cfg, state)
+            if graph is not None:
+                state = graph.load(state)
+        eager = n
+        if graph is not None:
+            graph.replay(n // GRAPH_STEPS)
+            eager = n % GRAPH_STEPS
+            if eager:
+                state, graph = graph.unload(), None
         # stepped in this frame, so each step's input state is freed as
         # the next one starts (a helper's caller would hold the first)
-        for _ in range(n):
+        for _ in range(eager):
             state = step_batch(workload, cfg, state, device=state.now_ns.device)
         steps += n
         drive.steps += n
-    return state
+    return state if graph is None else graph.unload()
 
 
-# steps ``drive`` has run in this process, counted on the host (the
-# pipelined driver reads it around each chunk's sweep)
+# steps ``drive`` has run in this process, those of them served by
+# step-graph replays, and the step graphs it captured, counted on the
+# host (the pipelined driver reads the first two around each chunk's
+# sweep; ``compiles.count_compiles`` the captures)
 drive.steps = 0
+drive.graph_steps = 0
+drive.captures = 0
 
 
 def run_sweep(

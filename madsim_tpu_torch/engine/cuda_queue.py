@@ -9,8 +9,12 @@ or raises; on a CPU tensor it runs the plain torch version
 ``pop_min_decision_ref``. There is no fallback from one to the
 other: a CUDA tensor never takes the plain path.
 
-``pop_min_decision.launches`` counts kernel launches (the plain path does
-not count), so a run can show that the main path went through the kernel.
+``pop_min_decision.launches`` counts kernels that ran (the plain path
+does not count), so a run can show that the main path went through the
+kernel. A launch into a CUDA graph being captured runs nothing: it is
+counted apart, in ``pop_min_decision.captured``, and ``core.drive``'s
+step graph adds the launches its capture took in to ``launches`` each
+time it replays.
 """
 
 from __future__ import annotations
@@ -87,7 +91,10 @@ def _launch(time: torch.Tensor, tie: torch.Tensor):
     )
     if rc != 0:
         raise RuntimeError(f"pop_min kernel launch failed: CUDA error {rc}")
-    pop_min_decision.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        pop_min_decision.captured += 1
+    else:
+        pop_min_decision.launches += 1
     return slot, found
 
 
@@ -104,3 +111,4 @@ def pop_min_decision(
 
 
 pop_min_decision.launches = 0
+pop_min_decision.captured = 0

@@ -75,22 +75,15 @@ DUMP_HIST_SEEDS = (0, 5, 11)
 def dump(path: str, device) -> dict:
     """Leg (a)'s dump, written to ``path`` (``np.savez``); returns the
     engine steps it ran and pop-min's launches over them (equal on a
-    card: one launch per step)."""
+    card: one launch per step), as ``core.StepCount`` counts them."""
     import numpy as np
 
-    from ..engine import core, cuda_queue
+    from ..engine import core
     from ..engine.faults import FaultSpec
     from ..engine.state_io import to_numpy_leaves
     from ..explore.targets import oracle_demo_faults, stale_etcd_target
     from ..models import raft
     from ..oracle import decode_seed, history_bytes
-
-    steps = [0]
-    step = core._step
-
-    def counted(*args, **kwargs):
-        steps[0] += 1
-        return step(*args, **kwargs)
 
     spec = FaultSpec(
         crashes=2, crash_window_ns=1_500_000_000,
@@ -101,9 +94,7 @@ def dump(path: str, device) -> dict:
     ecfg = raft.engine_config(cfg, time_limit_ns=3_000_000_000, max_steps=30_000)
     wl = raft.workload(cfg)
 
-    launches0 = cuda_queue.pop_min_decision.launches
-    core._step = counted
-    try:
+    with core.StepCount() as count:
         blobs = {}
         # a small sweep: every per-seed counter and latched flag
         final = core.run_sweep(wl, ecfg, np.arange(DUMP_SEEDS, dtype=np.int64), device=device)
@@ -128,14 +119,11 @@ def dump(path: str, device) -> dict:
                 raise AssertionError(
                     f"history path divergence at seed {seed}: sweep lane != traced replay")
             blobs[f"hist{seed}"] = np.frombuffer(sweep_b, dtype=np.uint8)
-    finally:
-        core._step = step
 
     np.savez(path, **blobs)
     print(f"wrote {len(blobs)} arrays -> {path}")
-    return {"arrays": len(blobs), "engine_steps": steps[0],
-            "pop_min_launches": cuda_queue.pop_min_decision.launches - launches0,
-            "device": str(device)}
+    return {"arrays": len(blobs), "engine_steps": count.steps,
+            "pop_min_launches": count.launches, "device": str(device)}
 
 
 def _dump_main(path: str, device) -> int:

@@ -12,11 +12,13 @@ and its summary is computed through the limit-masked reduction
 (``models/_common.make_sweep_summary(limit=)``), as the reference does,
 so the totals equal the reference's at every total.
 ``compiles_in_timed_region`` counts what ``engine/compiles.count_compiles``
-counts while the timed loop runs: kernel builds and library loads. The
-only compilation eager torch does is the pop-min kernel's build and load,
-so the warm-up before the timed loop runs one engine step on a sub-chunk
-(which launches the kernel on a card) and both summaries a ragged tail
-needs; after it the count is 0.
+counts while the timed loop runs: kernel builds, library loads and
+``core.drive``'s step-graph captures. The warm-up before the timed loop
+runs ``core.GRAPH_STEPS`` steps at each width the loop runs: the chunk's,
+and with ``ckpt_dir`` a ragged tail's, which the resumable sweep runs
+unpadded (on a card that builds and loads the pop-min kernel and
+captures the step graph each chunk replays), and both summaries a
+ragged tail needs; after it the count is 0.
 
 Usage, from the repository root:
     python -m madsim_tpu_torch.scripts.sweep_million [total_seeds] [ckpt_dir] [--mesh [N]] [--device D]
@@ -50,8 +52,6 @@ import time
 from . import _cli
 
 BASE = 1 << 30
-# the warm-up's sub-chunk, per rank
-WARM_LANES = 8
 
 
 def chunk_size() -> int:
@@ -94,11 +94,17 @@ def sweep(mesh, total: int, ckpt_dir, chunk: int, n_dev: int, device) -> dict:
 
     tail = total % chunk if total > chunk else 0
 
-    # warm-up outside the timed region: one engine step of a sub-chunk
-    # (the kernel's build and load on a card) and the summaries the timed
-    # loop calls, the limit-masked one a ragged tail hits included
-    warm_n = min(total, WARM_LANES * max(n_dev, 1))
-    warm = run_chunk(arange(BASE - warm_n, BASE), ecfg._replace(max_steps=1))
+    # warm-up outside the timed region: one step graph's steps at each
+    # width the timed loop runs (the kernel's build and load and, on a
+    # card, the capture of drive's step graph for that width; the
+    # resumable sweep runs a ragged tail unpadded, at a width of its own)
+    # and the summaries the timed loop calls, the limit-masked one a
+    # ragged tail hits included
+    warm_n = min(total, chunk)
+    warm_cfg = ecfg._replace(max_steps=core.GRAPH_STEPS)
+    if ckpt_dir and tail:
+        run_chunk(arange(BASE - tail, BASE), warm_cfg)
+    warm = run_chunk(arange(BASE - warm_n, BASE), warm_cfg)
     raft.sweep_summary(warm)
     if tail:
         raft.sweep_summary(warm, limit=min(tail, warm_n))

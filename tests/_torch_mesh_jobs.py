@@ -65,23 +65,13 @@ def sweep_leaves(mesh, model: str, n: int) -> list:
 
 
 def counted_sweep_leaves(mesh, model: str, n: int):
-    """``sweep_leaves`` with this rank's ``step_batch`` calls and pop-min
-    launches counted: ``(leaves, calls, launches)``."""
-    from madsim_tpu_torch.engine import core, cuda_queue
+    """``sweep_leaves`` with this rank's batched engine steps and pop-min
+    launches counted (``core.StepCount``): ``(leaves, calls, launches)``."""
+    from madsim_tpu_torch.engine import core
 
-    step_batch, calls = core.step_batch, [0]
-
-    def counted(*args, **kwargs):
-        calls[0] += 1
-        return step_batch(*args, **kwargs)
-
-    core.step_batch = counted
-    cuda_queue.pop_min_decision.launches = 0
-    try:
+    with core.StepCount() as count:
         leaves = sweep_leaves(mesh, model, n)
-    finally:
-        core.step_batch = step_batch
-    return leaves, calls[0], cuda_queue.pop_min_decision.launches
+    return leaves, count.batched, count.launches
 
 
 def chunked_leaves(mesh, model: str, seeds, cpd: int) -> list:

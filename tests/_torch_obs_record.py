@@ -13,8 +13,10 @@ RUN_ID = "00000000cafef00d"
 WALL_METRIC = re.compile(r"(_seconds|_per_s|_per_s_per_device|_utilization)$")
 
 # the port's own histograms, which the reference's drivers do not record:
-# the pipelined driver's per-chunk screen time, engine steps and events
-PORT_ONLY_METRICS = ("sweep_screen_seconds", "sweep_chunk_steps", "sweep_chunk_events")
+# the pipelined driver's per-chunk screen time, engine steps (and those
+# of them its step graphs replayed) and events
+PORT_ONLY_METRICS = ("sweep_screen_seconds", "sweep_chunk_steps", "sweep_chunk_graph_steps",
+                     "sweep_chunk_events")
 
 
 def record(obs, tel, journal_path) -> dict:

@@ -15,9 +15,10 @@ the mesh's, against the reference on two CPU devices). Each run also
 holds its report to the reference's bytes, and the trace to the
 reference's spans (the port adds a ``host check`` span per chunk of the
 incremental checked sweep, which the reference's trace lacks). The
-port's pipelined driver also observes three histograms the reference's
-lacks, ``PORT_ONLY_METRICS`` (the screen's time, the engine steps and
-the events of each chunk), which the comparison sets aside by name.
+port's pipelined driver also observes four histograms the reference's
+lacks, ``PORT_ONLY_METRICS`` (the screen's time, the engine steps, those
+of them step graphs replayed, and the events of each chunk), which the
+comparison sets aside by name.
 
 ``JAX_PLATFORMS=cpu python tests/test_torch_obs_drivers.py --write``
 writes ``madsim_tpu_torch/data/obs_event_mix.json`` from the reference:
